@@ -1,0 +1,424 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (rag_icd10_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+1. Prints the card's name and power limit (nvidia-smi).
+2. Builds every CUDA kernel of the /query main path from this checkout's
+   sources (one nvcc per source, all started together).
+3. Kernel phase: holds each kernel against its plain PyTorch version on
+   the card at the served corpus shape (40,474 rows padded to 40,960,
+   D = 768) for B in {8, 64, 256} and every mode, and times the kernel,
+   the plain version and one library call computing the same function
+   (CUDA events).
+4. Slice phase: embeds a 40,474-row synthetic ICD corpus with a
+   full-width BERT-base encoder (12 layers, 768 hidden, 12 heads, 3072
+   intermediate, vocab 21128, bf16, seeded random weights), saves the
+   store, starts the port's API server on 127.0.0.1 over it (fp32
+   residency on the card) and sends /query requests. Every request must
+   answer 200 with candidates, the scoring kernel's launch count must have
+   grown during the requests, and one request's batch must give the same
+   top-k through the kernel as through the plain version.
+5. Prints one JSON line describing each kernel, and as the last line
+   {"ok": true, "device": {...}}.
+
+Any failed check raises: the script then exits non-zero. It also exits
+non-zero, printing no result, when CUDA is unavailable or when the
+package is not beside it. It imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import socket
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
+PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}  # fp32 outside tensor cores; bf16 dense
+DEVICE = "cuda"
+N_REAL, DIM = 40474, 768
+TOL_FP32 = 5e-5  # sequential fp32 sums of 768 unit-vector products vs cuBLAS order
+TOL_BF16_VS_FP32 = 2e-2  # bf16 residency against the exact fp32 scores
+
+QUERIES = [  # (text, top_k): single- and multi-diagnosis, top_k 5 and 10
+    ("急性胃肠炎", 5),
+    ("急性胃肠炎，高血压病3级", 10),
+    ("慢性肝炎", 5),
+    ("疑似肺部感染，2型糖尿病", 10),
+    ("慢性阻塞性肺疾病急性加重，冠状动脉粥样硬化性心脏病", 5),
+    ("复发性胃溃疡", 10),
+    ("急性心梗死，肾功能不全，继发性肝损伤", 5),
+    ("高血压", 10),
+]
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int = 20) -> float:
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def score_bound_ms(b: int, n: int, d: int, corpus_bytes: int, kind: str):
+    """Least time for (B, D) x (N, D) -> (B, N) weighted scores: each input
+    read once, the output written once, or the products at peak rate."""
+    moved = b * d * 4 + n * d * corpus_bytes + 2 * n * 4 + b * n * 4
+    t_bytes = moved / H100_BYTES_PER_S * 1e3
+    t_ops = 2.0 * b * n * d / PEAK_FLOPS[kind] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_phase(weights_np):
+    """K1 against its plain version at the served corpus shape."""
+    import numpy as np
+    import torch
+
+    from rag_icd10_tpu_torch.ops.flat_topk import pad_corpus, weighted_scores_reference
+    from rag_icd10_tpu_torch.ops.fused_score import fused_weighted_scores
+
+    rng = np.random.default_rng(1)
+    c = rng.standard_normal((N_REAL, DIM), dtype=np.float32)
+    c /= np.linalg.norm(c, axis=1, keepdims=True)
+    cp, wp, mp = pad_corpus(c, weights_np, multiple=1024)
+    dev = torch.device(DEVICE)
+    corpus32 = torch.from_numpy(cp).to(dev)
+    corpus16 = corpus32.to(torch.bfloat16)
+    w = torch.from_numpy(wp).to(dev)
+    m = torch.from_numpy(mp).to(dev)
+    n = corpus32.shape[0]
+    modes = {
+        # mode: (corpus, exact, peak kind, corpus bytes, library call)
+        "fp32_exact": (corpus32, True, "fp32", 4,
+                       lambda q: torch.matmul(q, corpus32.T).mul_(w).add_(m)),
+        "fp32_bf16pass": (corpus32, False, "bf16", 4,
+                          lambda q: torch.matmul(q.bfloat16(), corpus32.bfloat16().T)
+                          .float().mul_(w).add_(m)),
+        "bf16_corpus": (corpus16, True, "bf16", 2,
+                        lambda q: torch.matmul(q.bfloat16(), corpus16.T)
+                        .float().mul_(w).add_(m)),
+    }
+    rows = []
+    for b in (8, 64, 256):
+        q_np = rng.standard_normal((b, DIM), dtype=np.float32)
+        q_np /= np.linalg.norm(q_np, axis=1, keepdims=True)
+        q = torch.from_numpy(q_np).to(dev)
+        exact_ref = weighted_scores_reference(q, corpus32, w, m)
+        for mode, (corpus, exact, kind, cbytes, library) in modes.items():
+            got = fused_weighted_scores(q, corpus, w, m, exact=exact)
+            want = weighted_scores_reference(q, corpus, w, m, exact=exact)
+            torch.cuda.synchronize()
+            check(tuple(got.shape) == (b, n) and got.dtype == torch.float32,
+                  f"K1 {mode} B={b} output shape/dtype")
+            check(bool(torch.isfinite(got[:, :N_REAL]).all()), f"K1 {mode} B={b} finite")
+            err = (got[:, :N_REAL] - want[:, :N_REAL]).abs().max().item()
+            check(err <= TOL_FP32, f"K1 {mode} B={b} max|kernel-plain|={err} > {TOL_FP32}")
+            check(bool((got[:, N_REAL:] < -1e29).all()), f"K1 {mode} B={b} padding masked")
+            if mode == "bf16_corpus":
+                err32 = (got[:, :N_REAL] - exact_ref[:, :N_REAL]).abs().max().item()
+                check(err32 <= TOL_BF16_VS_FP32,
+                      f"K1 bf16 corpus B={b} vs fp32 scores {err32} > {TOL_BF16_VS_FP32}")
+            bound, bound_by = score_bound_ms(b, n, DIM, cbytes, kind)
+            row = {
+                "mode": mode, "B": b, "N": n, "D": DIM,
+                "max_abs_err": err,
+                "ms": time_ms(lambda: fused_weighted_scores(q, corpus, w, m, exact=exact)),
+                "plain_ms": time_ms(
+                    lambda: weighted_scores_reference(q, corpus, w, m, exact=exact)),
+                "library_ms": time_ms(lambda: library(q)),
+                "bound_ms": bound, "bound_by": bound_by,
+            }
+            rows.append(row)
+            print("K1 " + json.dumps(row), flush=True)
+            del got, want
+        del exact_ref
+    return rows
+
+
+def embed_corpus(encoder, texts, batch: int = 512):
+    """Embed in length-sorted batches (fewer padded tokens per forward),
+    returned in the original order."""
+    import numpy as np
+
+    order = sorted(range(len(texts)), key=lambda i: len(texts[i]))
+    out = np.zeros((len(texts), encoder.dim), dtype=np.float32)
+    for s in range(0, len(order), batch):
+        idx = order[s : s + batch]
+        out[idx] = encoder.encode_batch([texts[i] for i in idx], kind="query")
+    return out
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+async def serve_and_query(cfg, engine_probe):
+    """Start the port's API server, send QUERIES three times (two timed
+    passes, then one under torch.profiler), read /stats, stop it.
+    Returns (latencies_ms, launches, responses, stages, device)."""
+    import aiohttp
+    import torch
+    from aiohttp import web
+
+    from rag_icd10_tpu_torch.api.app import APIServer
+    from rag_icd10_tpu_torch.ops.fused_score import fused_weighted_scores
+    from rag_icd10_tpu_torch.utils.metrics import metrics
+
+    server = APIServer(config=cfg, device=DEVICE)
+    runner = web.AppRunner(server.app)
+    t0 = time.perf_counter()
+    await runner.setup()  # runs Engine.startup: load store, encoder, warmup
+    site = web.TCPSite(runner, cfg.api.host, cfg.api.port)
+    await site.start()
+    print(f"server up in {time.perf_counter() - t0:.1f} s (load + warmup)", flush=True)
+    url = f"http://{cfg.api.host}:{cfg.api.port}"
+    latencies, responses = [], []
+
+    async def query_pass(session, timed: bool):
+        for text, top_k in QUERIES:
+            t = time.perf_counter()
+            async with session.post(
+                url + "/query", json={"text": text, "top_k": top_k}
+            ) as resp:
+                body = await resp.json()
+                status = resp.status
+            if timed:
+                latencies.append((time.perf_counter() - t) * 1e3)
+            responses.append((text, top_k, status, body))
+
+    try:
+        async with aiohttp.ClientSession() as session:
+            async with session.get(url + "/health") as resp:
+                health = await resp.json()
+                check(resp.status == 200 and health["status"] == "healthy",
+                      f"/health: {resp.status} {health}")
+            fused_weighted_scores.launches = 0  # count the main path only
+            metrics.reset()  # stage timings of these requests, not of warmup
+            await query_pass(session, timed=True)
+            await query_pass(session, timed=True)
+            async with session.get(url + "/stats") as resp:
+                stages = (await resp.json())["stage_latency"]
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                t = time.perf_counter()
+                await query_pass(session, timed=False)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t) * 1e3
+            launches = fused_weighted_scores.launches
+        engine_probe(server.engine)
+    finally:
+        await runner.cleanup()
+    kernels = sorted(
+        ((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+         if e.self_device_time_total > 0),
+        key=lambda r: -r[1],
+    )
+    busy_ms = sum(ms for _, ms, _ in kernels)
+    device = {
+        "requests": len(QUERIES), "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "idle_share": 1.0 - busy_ms / wall_ms,
+        "k1_ms": sum(ms for key, ms, _ in kernels if "fused_score_kernel" in key),
+        "top": [{"kernel": key[:80], "ms": ms, "count": n} for key, ms, n in kernels[:8]],
+    }
+    return latencies, launches, responses, stages, device
+
+
+def slice_phase(corpus):
+    import numpy as np
+    import torch
+
+    from rag_icd10_tpu_torch import config as tconfig
+    from rag_icd10_tpu_torch.index.vector_store import VectorStore
+    from rag_icd10_tpu_torch.models.encoder import TextEncoder
+    from rag_icd10_tpu_torch.models.tokenizer import WordPieceTokenizer
+    from rag_icd10_tpu_torch.ops.flat_topk import weighted_scores_reference
+    from rag_icd10_tpu_torch.ops.fused_score import fused_search, fused_weighted_scores
+
+    db_dir = ROOT / "build" / "chip_smoke"
+    db_dir.mkdir(parents=True, exist_ok=True)
+    db = str(db_dir / "icd10_store")
+    tok = WordPieceTokenizer.from_corpus(corpus.titles + corpus.semantic_texts)
+    tok.save_vocab(db + ".vocab.txt")  # where Engine looks beside the store
+    enc_cfg = tconfig.EncoderConfig(weights_path=None, vocab_path=None)
+    encoder = TextEncoder(enc_cfg, tokenizer=tok, seed=0, device=DEVICE)
+    arch = encoder.arch
+    check((arch.num_layers, arch.hidden_size, arch.num_heads, arch.intermediate_size,
+           arch.vocab_size, arch.compute_dtype) == (12, 768, 12, 3072, 21128, torch.bfloat16),
+          f"full-width BERT-base encoder, got {arch}")
+    t0 = time.perf_counter()
+    vecs = embed_corpus(encoder, corpus.semantic_texts)
+    embed_s = time.perf_counter() - t0
+    check(vecs.shape == (N_REAL, DIM) and bool(np.isfinite(vecs).all()), "corpus vectors")
+    check(bool(np.allclose(np.linalg.norm(vecs, axis=1), 1.0, atol=1e-3)), "unit vectors")
+    print(f"embedded {N_REAL} corpus rows in {embed_s:.1f} s", flush=True)
+    store_cfg = tconfig.StoreConfig(
+        db_path=db, search_method="exact", device_dtype="float32",
+        index_type="FLAT", sharded="auto", mode="local",
+    )
+    store = VectorStore(dim=DIM, config=store_cfg, device=DEVICE)
+    store.insert_records(list(corpus.records()), vecs)
+    store.save(db)
+    probe_texts = [corpus.semantic_texts[i] for i in (0, 17, N_REAL - 1)]
+    build_vecs = encoder.encode_queries(probe_texts)
+    del encoder, store
+    torch.cuda.empty_cache()
+
+    cfg = tconfig.Config(
+        encoder=enc_cfg,
+        store=store_cfg,
+        api=tconfig.APIConfig(host="127.0.0.1", port=free_port()),
+    )
+    found = {}
+
+    def probe(engine):
+        """After the requests: pairing, one batch through kernel vs plain,
+        encoder forward time and K1 at the main path's shape."""
+        served = engine.encoder.encode_queries(probe_texts)
+        check(bool(np.allclose(served, build_vecs, atol=1e-5)),
+              "serving encoder reproduces the store's encoder")
+        state = engine.matcher.extract_stage([QUERIES[1][0]])
+        texts = state["flat_diagnoses"]
+        q = engine.encoder.encode_queries_device(texts)
+        dev = engine.store._dev
+        corpus_t, w, m = dev["corpus"], dev["weights"], dev["mask"]
+        k = QUERIES[1][1] * engine.config.pipeline.overfetch
+        vals, idx = fused_search(q, corpus_t, w, m, k=k)
+        plain = weighted_scores_reference(q, corpus_t, w, m)
+        pvals, _ = torch.topk(plain, k, dim=1)
+        check(bool(torch.allclose(vals, pvals, atol=TOL_FP32, rtol=0)),
+              "batch top-k values: kernel vs plain")
+        picked = torch.gather(plain, 1, idx.long())
+        check(bool(torch.allclose(picked, vals, atol=TOL_FP32, rtol=0)),
+              "batch top-k ids: kernel vs plain (up to ties)")
+        scores = fused_weighted_scores(q, corpus_t, w, m)
+        torch.cuda.synchronize()
+        b, n = q.shape[0], corpus_t.shape[0]
+        bound, bound_by = score_bound_ms(b, n, DIM, 4, "fp32")
+        found["main"] = {
+            "B": b, "N": n, "D": DIM,
+            "max_abs_err": (scores[:, :N_REAL] - plain[:, :N_REAL]).abs().max().item(),
+            "ms": time_ms(lambda: fused_weighted_scores(q, corpus_t, w, m)),
+            "plain_ms": time_ms(lambda: weighted_scores_reference(q, corpus_t, w, m)),
+            "library_ms": time_ms(
+                lambda: torch.matmul(q, corpus_t.T).mul_(w).add_(m)),
+            "bound_ms": bound, "bound_by": bound_by,
+        }
+        batch8 = [t for t, _ in QUERIES]
+        found["encode_ms"] = time_ms(
+            lambda: engine.encoder.encode_queries_device(batch8), reps=10)
+
+    latencies, launches, responses, stages, device = asyncio.run(
+        serve_and_query(cfg, probe))
+    for text, top_k, status, body in responses:
+        check(status == 200, f"/query {text!r}: {status} {body}")
+        cands = body["candidates"]
+        check(1 <= len(cands) <= top_k, f"/query {text!r}: {len(cands)} candidates")
+        check(all(np.isfinite(c["score"]) for c in cands), f"/query {text!r}: scores")
+        if "，" in text:
+            check(body["is_multi_diagnosis"], f"/query {text!r}: multi-diagnosis")
+    check(launches >= len(responses),
+          f"K1 launched {launches} times during {len(responses)} /query requests")
+    check(device["k1_ms"] > 0, "the profiled /query requests ran K1 on the device")
+    p50 = statistics.median(latencies)
+    print(f"/query: {len(responses)} requests, K1 launches {launches}; timed "
+          f"{len(latencies)}: p50 {p50:.2f} ms, max {max(latencies):.2f} ms", flush=True)
+    print(f"encoder forward (8 queries, BERT-base bf16): {found['encode_ms']:.3f} ms",
+          flush=True)
+    print("stages " + json.dumps(stages), flush=True)
+    print("device " + json.dumps(device), flush=True)
+    print("K1 main path " + json.dumps(found["main"]), flush=True)
+    e2e = {"query_p50_ms": p50, "query_max_ms": max(latencies),
+           "encode_ms": found["encode_ms"], "idle_share": device["idle_share"]}
+    return launches, found["main"], e2e
+
+
+def main() -> int:
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    import rag_icd10_tpu_torch
+
+    pkg = Path(rag_icd10_tpu_torch.__file__).resolve()
+    if ROOT not in pkg.parents:
+        print(f"chip_smoke: rag_icd10_tpu_torch imported from {pkg}, not this "
+              "checkout", file=sys.stderr)
+        return 2
+    jax_before = sys.modules.get("jax") is not None
+
+    card = card_line()
+    print(card, flush=True)
+    from rag_icd10_tpu_torch.data.corpus import synthetic_corpus
+    from rag_icd10_tpu_torch.ops import cuda_build
+
+    t0 = time.perf_counter()
+    libs = cuda_build.build_all()
+    print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    for name in libs:
+        for line in cuda_build.ptxas_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    corpus = synthetic_corpus(N_REAL, seed=0)
+    sweep = kernel_phase(corpus.level_weights((1.2, 1.0, 0.8)))
+    launches, main_path, e2e = slice_phase(corpus)
+    check(jax_before or sys.modules.get("jax") is None, "the port imported JAX")
+    check(not any(m == "rag_icd10_tpu" or m.startswith("rag_icd10_tpu.")
+                  for m in sys.modules), "the port imported the JAX package")
+
+    kernels = [{
+        "name": "fused_score",
+        "route": "cuda",
+        "source": "rag_icd10_tpu_torch/ops/csrc/fused_score.cu",
+        "replaces": "rag_icd10_tpu/ops/pallas_score.py:31",
+        "launches": launches,
+        **{key: main_path[key] for key in
+           ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shape": {key: main_path[key] for key in ("B", "N", "D")},
+        "sweep": sweep,
+    }]
+    print("e2e " + json.dumps(e2e), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

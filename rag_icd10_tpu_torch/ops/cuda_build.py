@@ -1,0 +1,95 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each source under ``ops/csrc/`` is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into a shared library with a plain C interface and loaded
+with ``ctypes``; no PyTorch headers are involved, so a build takes
+seconds. Libraries go to ``build/torch_kernels/`` at the repository root,
+named by a hash of the source and flags, so an edited source is rebuilt
+and an unchanged one is reused. Nothing is compiled at import time: the
+first launch builds, and ``build_all`` builds every source at once (one
+``nvcc`` per source, all started together).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+SOURCES: Dict[str, Path] = {"fused_score": CSRC / "fused_score.cu"}
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not Path(path).exists():
+        raise RuntimeError(
+            "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels "
+            "of rag_icd10_tpu_torch are built from source at first use"
+        )
+    return path
+
+
+def library_path(name: str) -> Path:
+    src = SOURCES[name]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def ptxas_log(name: str) -> str:
+    """What ``-Xptxas -v`` reported for the last build of ``name``
+    (registers, shared memory, spills per kernel), or "" if not built."""
+    log = library_path(name).with_suffix(".ptxas.txt")
+    return log.read_text() if log.exists() else ""
+
+
+def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
+    """Compile every named source that has no up-to-date library, one
+    ``nvcc`` process per source, all running at once. Raises with the
+    compiler's output if any build fails."""
+    names = list(names or SOURCES)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name in names:
+        lib = library_path(name)
+        if lib.exists():
+            continue
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        jobs[name] = (lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ))
+    failures = []
+    for name, (lib, tmp, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        lib.with_suffix(".ptxas.txt").write_text(log)
+        os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+    if failures:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+    return {name: library_path(name) for name in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``name``, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            path = build_all([name])[name]
+            lib = _loaded[name] = ctypes.CDLL(str(path))
+        return lib
