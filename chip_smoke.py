@@ -4,21 +4,29 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds every CUDA kernel of the /query main path from this checkout's
-   sources (one nvcc per source, all started together).
+2. Builds every CUDA kernel of the served paths from this checkout's
+   sources (one nvcc per source, all started together): K1 fused_score,
+   K2 slot_stream, K3/K4 chunk_max, K5 gather_rescore.
 3. Kernel phase: holds each kernel against its plain PyTorch version on
-   the card at the served corpus shape (40,474 rows padded to 40,960,
-   D = 768) for B in {8, 64, 256} and every mode, and times the kernel,
-   the plain version and one library call computing the same function
-   (CUDA events).
+   the card and times the kernel, the plain version and one library call
+   computing the same function (CUDA events). K1 at the served corpus
+   shape (40,474 rows padded to 40,960, D = 768) for B in {8, 64, 256}
+   and every mode; K2-K5 at that shape and at N = 1,048,576 (rows made
+   on the card from a seeded generator) for B in {8, 64, 256} and
+   k in {10, 100}.
 4. Slice phase: embeds a 40,474-row synthetic ICD corpus with a
    full-width BERT-base encoder (12 layers, 768 hidden, 12 heads, 3072
    intermediate, vocab 21128, bf16, seeded random weights), saves the
    store, starts the port's API server on 127.0.0.1 over it (fp32
-   residency on the card) and sends /query requests. Every request must
-   answer 200 with candidates, the scoring kernel's launch count must have
-   grown during the requests, and one request's batch must give the same
-   top-k through the kernel as through the plain version.
+   residency on the card) and sends /query requests: the 8 QUERIES with
+   the default method (exact), then with search_method "streaming" and
+   "chunkstream". Every request must answer 200 with candidates; the
+   certified methods must give exact's candidates; each method's kernels
+   must have launched during its requests; one request's batch must give
+   the same top-k through the kernel as through the plain version. On
+   the same rows, VectorStore.search with CHUNKSTREAM_SCAN=pallas_bf16
+   and pallas_int8 must give exact's hits and launch K3's bf16 path
+   and K4.
 5. Prints one JSON line describing each kernel, and as the last line
    {"ok": true, "device": {...}}.
 
@@ -46,6 +54,8 @@ DEVICE = "cuda"
 N_REAL, DIM = 40474, 768
 TOL_FP32 = 5e-5  # sequential fp32 sums of 768 unit-vector products vs cuBLAS order
 TOL_BF16_VS_FP32 = 2e-2  # bf16 residency against the exact fp32 scores
+N_LARGE = 1 << 20  # the corpus scale the streaming and chunkstream methods exist for
+CERTIFIED_METHODS = ("streaming", "chunkstream")
 
 QUERIES = [  # (text, top_k): single- and multi-diagnosis, top_k 5 and 10
     ("急性胃肠炎", 5),
@@ -98,7 +108,8 @@ def score_bound_ms(b: int, n: int, d: int, corpus_bytes: int, kind: str):
 
 
 def kernel_phase(weights_np):
-    """K1 against its plain version at the served corpus shape."""
+    """K1 against its plain version at the served corpus shape; K2-K5 at
+    that shape and at N_LARGE rows."""
     import numpy as np
     import torch
 
@@ -160,7 +171,178 @@ def kernel_phase(weights_np):
             print("K1 " + json.dumps(row), flush=True)
             del got, want
         del exact_ref
-    return rows
+    k25 = certified_sweep(corpus32, w, m, N_REAL, seed=3, reps=10)
+    del corpus16
+    torch.cuda.empty_cache()
+    big = large_corpus()
+    large = certified_sweep(*big, N_LARGE, seed=4, reps=3)
+    del big
+    torch.cuda.empty_cache()
+    return rows, {name: k25[name] + large[name] for name in k25}
+
+
+def bound_ms(moved_bytes: float, ops: float, kind: str):
+    t_bytes = moved_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS[kind] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_err(a, b) -> float:
+    """max |a - b| where both are finite; inf entries must match exactly."""
+    import torch
+
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    check(bool((a[~fin] == b[~fin]).all()), "non-finite entries agree")
+    return (a[fin] - b[fin]).abs().max().item() if bool(fin.any()) else 0.0
+
+
+def k2_measure(q, corpus, w, m, k, reps):
+    """K2 against its plain version; its top-k against the exact one."""
+    import torch
+
+    from rag_icd10_tpu_torch.ops.flat_topk import weighted_scores_reference
+    from rag_icd10_tpu_torch.ops.fused_score import (
+        slot_count, slot_depth, streaming_candidates,
+        streaming_candidates_reference, streaming_topk,
+    )
+
+    b, d = q.shape
+    n = corpus.shape[0]
+    S, P = slot_depth(k), slot_count(b, n, k)
+    vals, ids, bnd = streaming_candidates(q, corpus, w, m, S, P)
+    pv, _, pb = streaming_candidates_reference(q, corpus, w, m, S, P)
+    torch.cuda.synchronize()
+    err = max(max_err(vals, pv), max_err(bnd, pb))
+    check(err <= TOL_FP32, f"K2 B={b} N={n} k={k}: |kernel-plain| {err}")
+    tv, ti, cert = streaming_topk(q, corpus, w, m, k, guarantee=False)
+    exact = weighted_scores_reference(q, corpus, w, m)
+    ev, _ = torch.topk(exact, k, dim=1)
+    ok = cert.nonzero().squeeze(1)
+    check(bool(torch.allclose(tv[ok], ev[ok], atol=TOL_FP32, rtol=0)),
+          f"K2 B={b} N={n} k={k}: certified top-k values vs exact")
+    picked = torch.gather(exact, 1, ti.long())
+    check(bool(torch.allclose(picked[ok], tv[ok], atol=TOL_FP32, rtol=0)),
+          f"K2 B={b} N={n} k={k}: top-k ids vs exact (up to ties)")
+    del exact, pv, pb
+    moved = b * d * 4 + n * d * corpus.element_size() + 2 * n * 4 + b * P * (2 * S + 1) * 4
+    bound, bound_by = bound_ms(moved, 2.0 * b * n * d, "fp32")
+    return {
+        "B": b, "N": n, "D": d, "k": k, "S": S, "slots": P, "max_abs_err": err,
+        "certified": float(cert.float().mean()),
+        "ms": time_ms(lambda: streaming_candidates(q, corpus, w, m, S, P), reps),
+        "topk_ms": time_ms(lambda: streaming_topk(q, corpus, w, m, k, guarantee=False), reps),
+        "plain_ms": time_ms(
+            lambda: streaming_candidates_reference(q, corpus, w, m, S, P), reps),
+        "library_ms": time_ms(
+            lambda: torch.topk(torch.matmul(q, corpus.T).mul_(w).add_(m), k, dim=1), reps),
+        "bound_ms": bound, "bound_by": bound_by,
+    }
+
+
+def k34_measure(q, store, reps):
+    """K3 (fp32 or bf16 store) or K4 (int8 store) against its plain
+    version. Library: one matmul (fp32, or bf16 tensor cores for the
+    reduced stores) and the chunk max over the (B, N/128, 128) view."""
+    import torch
+
+    from rag_icd10_tpu_torch.ops.chunk_stream import chunk_maxima, chunk_maxima_reference
+
+    f, sc = store.folded, store.scales
+    b, d = q.shape
+    n = f.shape[0]
+    got = chunk_maxima(q, f, sc)
+    want = chunk_maxima_reference(q, f, sc)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    tol = TOL_BF16_VS_FP32 if store.scan_dtype == "int8" else TOL_FP32
+    check(err <= tol, f"chunk_max {store.scan_dtype} B={b} N={n}: |kernel-plain| {err} > {tol}")
+    if store.scan_dtype == "fp32":
+        library = lambda: torch.matmul(q, f.T).view(b, n // 128, 128).amax(2)  # noqa: E731
+    elif store.scan_dtype == "bf16":
+        library = lambda: torch.matmul(q.bfloat16(), f.T).float().view(b, n // 128, 128).amax(2)  # noqa: E731
+    else:
+        library = lambda: (torch.matmul(q.bfloat16(), f.bfloat16().T).float() * sc).view(  # noqa: E731
+            b, n // 128, 128).amax(2)
+    moved = b * d * 4 + n * d * f.element_size() + b * (n // 128) * 4 + (n * 4 if sc is not None else 0)
+    kind = "fp32" if store.scan_dtype == "fp32" else "bf16"
+    bound, bound_by = bound_ms(moved, 2.0 * b * n * d, kind)
+    return got, {
+        "scan": store.scan_dtype, "B": b, "N": n, "D": d, "max_abs_err": err,
+        "ms": time_ms(lambda: chunk_maxima(q, f, sc), reps),
+        "plain_ms": time_ms(lambda: chunk_maxima_reference(q, f, sc), reps),
+        "library_ms": time_ms(library, reps),
+        "bound_ms": bound, "bound_by": bound_by,
+    }
+
+
+def k5_measure(q, store, cm, k, reps):
+    """K5 on the chunks a chunkstream search of top-k would fetch.
+    Library: the same gather plus one bmm (what the plain version does)."""
+    import torch
+
+    from rag_icd10_tpu_torch.ops.chunk_stream import gather_rescore, gather_rescore_reference
+
+    b, d = q.shape
+    n = store.corpus.shape[0]
+    mc = min(max(2 * k, k + 16), n // 128)
+    ids = torch.topk(cm, mc, dim=1).indices.to(torch.int32)
+    got = gather_rescore(q, store.corpus, ids)
+    want = gather_rescore_reference(q, store.corpus, ids)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    check(err <= TOL_FP32, f"K5 B={b} mc={mc}: |kernel-plain| {err}")
+    distinct = int(torch.unique(ids).numel())  # chunks this batch must read
+    moved = distinct * 128 * d * 4 + b * d * 4 + b * mc * 4 + b * mc * 128 * 4
+    bound, bound_by = bound_ms(moved, 2.0 * b * mc * 128 * d, "fp32")
+    plain = lambda: gather_rescore_reference(q, store.corpus, ids)  # noqa: E731
+    return {
+        "B": b, "N": n, "D": d, "k": k, "mc": mc, "distinct_chunks": distinct,
+        "max_abs_err": err,
+        "ms": time_ms(lambda: gather_rescore(q, store.corpus, ids), reps),
+        "plain_ms": time_ms(plain, reps), "library_ms": time_ms(plain, reps),
+        "bound_ms": bound, "bound_by": bound_by,
+    }
+
+
+def certified_sweep(corpus, w, m, n_real, seed, reps):
+    """K2-K5 against their plain versions for B in {8, 64, 256} and k in
+    {10, 100} over one corpus. Returns {kernel: [rows]}; the rows are
+    printed once, in the kernels line's "sweep"."""
+    import torch
+
+    from rag_icd10_tpu_torch.ops.chunk_stream import build_device
+
+    stores = {dt: build_device(corpus, w, scan_dtype=dt, n_real=n_real)
+              for dt in ("fp32", "bf16", "int8")}
+    gen = torch.Generator(device=corpus.device).manual_seed(seed)
+    out = {"K2": [], "K3": [], "K4": [], "K5": []}
+    for b in (8, 64, 256):
+        q = torch.randn((b, corpus.shape[1]), generator=gen, device=corpus.device)
+        q /= q.norm(dim=1, keepdim=True)
+        for dt in ("fp32", "bf16", "int8"):
+            cm, row = k34_measure(q, stores[dt], reps)
+            out["K4" if dt == "int8" else "K3"].append(row)
+            if dt == "fp32":
+                cm32 = cm
+        for k in (10, 100):
+            row = k2_measure(q, corpus, w, m, k, reps)
+            out["K2"].append(row)
+            out["K5"].append(k5_measure(q, stores["fp32"], cm32, k, reps))
+    del stores
+    torch.cuda.empty_cache()
+    return out
+
+
+def large_corpus(seed: int = 2):
+    """N_LARGE unit rows, level weights and a zero mask, made on the card."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    c = torch.randn((N_LARGE, DIM), generator=gen, device=DEVICE)
+    c /= c.norm(dim=1, keepdim=True)
+    levels = torch.randint(0, 3, (N_LARGE,), generator=gen, device=DEVICE)
+    w = torch.tensor([1.2, 1.0, 0.8], device=DEVICE)[levels]
+    return c, w, torch.zeros(N_LARGE, device=DEVICE)
 
 
 def embed_corpus(encoder, texts, batch: int = 512):
@@ -182,10 +364,35 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def launch_counts():
+    from rag_icd10_tpu_torch.ops import chunk_stream, fused_score
+
+    return {
+        "K1": fused_score.fused_weighted_scores.launches,
+        "K2": fused_score.streaming_candidates.launches,
+        "K3": chunk_stream.chunk_maxima.launches,
+        "K4": chunk_stream.chunk_maxima.launches_int8,
+        "K5": chunk_stream.gather_rescore.launches,
+    }
+
+
+def zero_launch_counts():
+    from rag_icd10_tpu_torch.ops import chunk_stream, fused_score
+
+    fused_score.fused_weighted_scores.launches = 0
+    fused_score.streaming_candidates.launches = 0
+    chunk_stream.chunk_maxima.launches = 0
+    chunk_stream.chunk_maxima.launches_int8 = 0
+    chunk_stream.gather_rescore.launches = 0
+
+
 async def serve_and_query(cfg, engine_probe):
     """Start the port's API server, send QUERIES three times (two timed
-    passes, then one under torch.profiler), read /stats, stop it.
-    Returns (latencies_ms, launches, responses, stages, device)."""
+    passes, then one under torch.profiler), then twice with each certified
+    search method, read /stats, stop it. Returns (latencies_ms, launches,
+    responses, stages, device, certified), where ``certified`` holds each
+    certified method's latencies, responses, launch counts and
+    certificate counts."""
     import aiohttp
     import torch
     from aiohttp import web
@@ -204,17 +411,18 @@ async def serve_and_query(cfg, engine_probe):
     url = f"http://{cfg.api.host}:{cfg.api.port}"
     latencies, responses = [], []
 
-    async def query_pass(session, timed: bool):
+    async def query_pass(session, timed: bool, method=None, lat=latencies, out=responses):
         for text, top_k in QUERIES:
+            payload = {"text": text, "top_k": top_k}
+            if method:
+                payload["search_method"] = method
             t = time.perf_counter()
-            async with session.post(
-                url + "/query", json={"text": text, "top_k": top_k}
-            ) as resp:
+            async with session.post(url + "/query", json=payload) as resp:
                 body = await resp.json()
                 status = resp.status
             if timed:
-                latencies.append((time.perf_counter() - t) * 1e3)
-            responses.append((text, top_k, status, body))
+                lat.append((time.perf_counter() - t) * 1e3)
+            out.append((text, top_k, status, body))
 
     try:
         async with aiohttp.ClientSession() as session:
@@ -235,6 +443,18 @@ async def serve_and_query(cfg, engine_probe):
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t) * 1e3
             launches = fused_weighted_scores.launches
+            certified = {}
+            store = server.engine.store
+            for method in CERTIFIED_METHODS:
+                before = dict(store.get_collection_stats()["certificate"])
+                run = {"latencies": [], "responses": []}
+                zero_launch_counts()  # this method's requests only
+                for _ in range(2):
+                    await query_pass(session, True, method, run["latencies"], run["responses"])
+                run["launches"] = launch_counts()
+                after = store.get_collection_stats()["certificate"]
+                run["certificate"] = {key: after[key] - before[key] for key in after}
+                certified[method] = run
         engine_probe(server.engine)
     finally:
         await runner.cleanup()
@@ -250,7 +470,45 @@ async def serve_and_query(cfg, engine_probe):
         "k1_ms": sum(ms for key, ms, _ in kernels if "fused_score_kernel" in key),
         "top": [{"kernel": key[:80], "ms": ms, "count": n} for key, ms, n in kernels[:8]],
     }
-    return latencies, launches, responses, stages, device
+    return latencies, launches, responses, stages, device, certified
+
+
+def same_candidates(got, want, what):
+    """Same codes (up to ties at equal scores) and scores within TOL_FP32."""
+    check(len(got) == len(want), f"{what}: {len(got)} vs {len(want)} candidates")
+    for g, e in zip(got, want):
+        check(abs(g["score"] - e["score"]) <= TOL_FP32, f"{what}: scores {g} vs {e}")
+        check(g["code"] == e["code"] or abs(g["score"] - e["score"]) <= TOL_FP32,
+              f"{what}: codes {g['code']} vs {e['code']}")
+
+
+def reduced_scan_stores(engine, queries_dev, k):
+    """VectorStore.search with CHUNKSTREAM_SCAN=pallas_bf16 and pallas_int8
+    over the served rows must give the exact store's hits; returns the
+    launch counts of those searches and each store's chunk store."""
+    import dataclasses
+
+    from rag_icd10_tpu_torch.index.vector_store import VectorStore
+
+    exact = engine.store.search(queries_dev, k, method="exact")
+    out = {}
+    for scan in ("pallas_bf16", "pallas_int8"):
+        cfg = dataclasses.replace(engine.store.config, chunkstream_scan=scan)
+        store = VectorStore(dim=DIM, config=cfg, device=DEVICE)
+        store.corpus = engine.store.corpus
+        store._vectors = engine.store._vectors
+        store.load_collection()
+        zero_launch_counts()
+        hits = store.search(queries_dev, k, method="chunkstream")
+        counts = launch_counts()
+        for got_row, want_row in zip(hits, exact):
+            same_candidates([h.to_dict() for h in got_row], [h.to_dict() for h in want_row],
+                            f"VectorStore chunkstream {scan}")
+        cs = store._chunkstore
+        out[scan] = {"launches": counts, "store": cs,
+                     "certificate": store.get_collection_stats()["certificate"],
+                     "resid_max": cs.resid_max, "bound_scale": cs.bound_scale}
+    return out
 
 
 def slice_phase(corpus):
@@ -336,8 +594,21 @@ def slice_phase(corpus):
         batch8 = [t for t, _ in QUERIES]
         found["encode_ms"] = time_ms(
             lambda: engine.encoder.encode_queries_device(batch8), reps=10)
+        # K2-K5 at the main path's shape: this request's batch and k
+        found["K2"] = k2_measure(q, corpus_t, w, m, k, reps=20)
+        fp32_store = engine.store._chunkstore  # built by the chunkstream requests
+        check(fp32_store is not None and fp32_store.scan_dtype == "fp32",
+              "the chunkstream requests built an fp32 chunk store")
+        cm, found["K3"] = k34_measure(q, fp32_store, reps=20)
+        found["K5"] = k5_measure(q, fp32_store, cm, k, reps=20)
+        reduced = reduced_scan_stores(engine, engine.encoder.encode_queries_device(batch8), k)
+        found["reduced"] = {scan: {key: r[key] for key in
+                                   ("launches", "certificate", "resid_max", "bound_scale")}
+                            for scan, r in reduced.items()}
+        _, found["K3_bf16"] = k34_measure(q, reduced["pallas_bf16"]["store"], reps=20)
+        _, found["K4"] = k34_measure(q, reduced["pallas_int8"]["store"], reps=20)
 
-    latencies, launches, responses, stages, device = asyncio.run(
+    latencies, launches, responses, stages, device, certified = asyncio.run(
         serve_and_query(cfg, probe))
     for text, top_k, status, body in responses:
         check(status == 200, f"/query {text!r}: {status} {body}")
@@ -359,7 +630,41 @@ def slice_phase(corpus):
     print("K1 main path " + json.dumps(found["main"]), flush=True)
     e2e = {"query_p50_ms": p50, "query_max_ms": max(latencies),
            "encode_ms": found["encode_ms"], "idle_share": device["idle_share"]}
-    return launches, found["main"], e2e
+
+    exact_by_query = {(text, top_k): body for text, top_k, _, body in responses[: len(QUERIES)]}
+    main = {"K1": dict(found["main"], launches=launches)}
+    for method, run in certified.items():
+        for text, top_k, status, body in run["responses"]:
+            check(status == 200, f"/query {method} {text!r}: {status} {body}")
+            same_candidates(body["candidates"], exact_by_query[(text, top_k)]["candidates"],
+                            f"/query {method} {text!r} vs exact")
+        cert = run["certificate"]
+        check(cert["queries"] > 0, f"{method}: the store certified no query")
+        p50m = statistics.median(run["latencies"])
+        print(f"/query {method}: {len(run['responses'])} requests, p50 {p50m:.2f} ms, "
+              f"max {max(run['latencies']):.2f} ms; certified {cert['certified']}/"
+              f"{cert['queries']} queries ({cert['certified'] / cert['queries']:.4f}), "
+              f"redone batches {cert['redos']}; launches {json.dumps(run['launches'])}",
+              flush=True)
+        e2e[f"{method}_p50_ms"] = p50m
+        e2e[f"{method}_certified_fraction"] = cert["certified"] / cert["queries"]
+        e2e[f"{method}_redos"] = cert["redos"]
+    counts = {"K2": certified["streaming"]["launches"]["K2"],
+              "K3": certified["chunkstream"]["launches"]["K3"],
+              "K5": certified["chunkstream"]["launches"]["K5"]}
+    reduced = found["reduced"]
+    check(reduced["pallas_bf16"]["launches"]["K3"] > 0, "K3's bf16 path launched")
+    counts["K4"] = reduced["pallas_int8"]["launches"]["K4"]
+    for name, count in counts.items():
+        check(count > 0, f"{name} launched {count} times on its main path")
+    for scan, r in reduced.items():
+        print(f"VectorStore chunkstream {scan}: " + json.dumps(r), flush=True)
+    for name in ("K2", "K3", "K4", "K5"):
+        main[name] = dict(found[name], launches=counts[name])
+    main["K3"]["bf16"] = found["K3_bf16"]
+    for name in ("K2", "K3", "K4", "K5"):
+        print(f"{name} main path " + json.dumps(main[name]), flush=True)
+    return main, e2e
 
 
 def main() -> int:
@@ -392,23 +697,34 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     corpus = synthetic_corpus(N_REAL, seed=0)
-    sweep = kernel_phase(corpus.level_weights((1.2, 1.0, 0.8)))
-    launches, main_path, e2e = slice_phase(corpus)
+    sweep, sweeps = kernel_phase(corpus.level_weights((1.2, 1.0, 0.8)))
+    sweeps["K1"] = sweep
+    main_path, e2e = slice_phase(corpus)
     check(jax_before or sys.modules.get("jax") is None, "the port imported JAX")
     check(not any(m == "rag_icd10_tpu" or m.startswith("rag_icd10_tpu.")
                   for m in sys.modules), "the port imported the JAX package")
 
-    kernels = [{
-        "name": "fused_score",
-        "route": "cuda",
-        "source": "rag_icd10_tpu_torch/ops/csrc/fused_score.cu",
-        "replaces": "rag_icd10_tpu/ops/pallas_score.py:31",
-        "launches": launches,
-        **{key: main_path[key] for key in
-           ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        "shape": {key: main_path[key] for key in ("B", "N", "D")},
-        "sweep": sweep,
-    }]
+    table = [  # (id, name, source, replaces)
+        ("K1", "fused_score", "fused_score.cu", "rag_icd10_tpu/ops/pallas_score.py:31"),
+        ("K2", "slot_stream", "slot_stream.cu", "rag_icd10_tpu/ops/pallas_score.py:220"),
+        ("K3", "chunk_max (fp32, bf16)", "chunk_max.cu", "rag_icd10_tpu/ops/chunk_stream.py:70"),
+        ("K4", "chunk_max (int8)", "chunk_max.cu", "rag_icd10_tpu/ops/chunk_stream.py:91"),
+        ("K5", "gather_rescore", "gather_rescore.cu", "rag_icd10_tpu/ops/chunk_stream.py:199"),
+    ]
+    kernels = []
+    for kid, name, src, replaces in table:
+        row = main_path[kid]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"rag_icd10_tpu_torch/ops/csrc/{src}",
+            "replaces": replaces,
+            "launches": row["launches"],
+            **{key: row[key] for key in
+               ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "shape": {key: row[key] for key in ("B", "N", "D", "k") if key in row},
+            "sweep": sweeps[kid],
+        })
     print("e2e " + json.dumps(e2e), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -16,12 +16,17 @@ reference MilvusService (services/milvus_service.py): ``insert_records``
   launch plus ``torch.topk`` (ops/fused_score.py); the level weights
   x{1.2, 1.0, 0.8} (milvus_service.py:550-558) are fused into the
   kernel's epilogue. A corpus on a CUDA device goes through the
-  hand-written kernel; a corpus on the CPU through its plain version.
-- Served methods: "exact" and "approx" (both exact top-k). "fast",
-  "streaming", "chunkstream", "sketch", "hnsw", the HNSW index type,
-  int8 and host residency, and ``sharded="on"`` raise ``ValueError``
-  ("not yet ported"), which the API maps to HTTP 400. ``sharded="auto"``
-  means one device.
+  hand-written kernels; a corpus on the CPU through their plain versions.
+- Served methods: "exact" and "approx" (both exact top-k); "streaming"
+  (in-kernel slot top-k, ops/fused_score.py ``streaming_topk``); and
+  "chunkstream" (chunk-select over a ``CHUNKSTREAM_SCAN`` pass 1 and an
+  exact fp32 pass 2, ops/chunk_stream.py; fp32 residency only). The two
+  certified methods return a per-query certificate with their top-k;
+  ``finalize`` reads it and redoes an uncertified batch on the exact
+  path, so every served method is exact. "fast", "sketch", "hnsw", the
+  HNSW index type, int8 and host residency, and ``sharded="on"`` raise
+  ``ValueError`` ("not yet ported"), which the API maps to HTTP 400.
+  ``sharded="auto"`` means one device.
 - No shape bucketing: PyTorch runs eagerly and the kernel masks ragged
   edges, so queries go in at their own batch size and top-k at k.
 """
@@ -40,12 +45,27 @@ import torch
 
 from ..config import StoreConfig
 from ..data.corpus import ICDCorpus, ICDRecord
+from ..ops import chunk_stream
 from ..ops.flat_topk import pad_corpus
-from ..ops.fused_score import fused_search
+from ..ops.fused_score import STREAMING_K_MAX, fused_search, streaming_topk
 from ..utils.device import resolve_device
 
-SERVED_METHODS = ("exact", "approx")
-UNPORTED_METHODS = ("fast", "chunk", "streaming", "chunkstream", "sketch", "hnsw")
+SERVED_METHODS = ("exact", "approx", "streaming", "chunkstream")
+UNPORTED_METHODS = ("fast", "chunk", "sketch", "hnsw")
+#: CHUNKSTREAM_SCAN grammar, engine[_dtype] -> (chunk_stream scan engine,
+#: stored scan dtype). The pallas* values run the chunk-max kernels over an
+#: fp32, bf16 or int8 store; xla, xla_high, bf16 and int8 are the JAX
+#: package's plain-XLA engines, plain torch here. On a CPU store every
+#: engine computes its plain version over the store's dtype.
+CHUNKSTREAM_SCANS = {
+    "pallas": ("pallas", "fp32"),
+    "pallas_bf16": ("pallas", "bf16"),
+    "pallas_int8": ("pallas", "int8"),
+    "xla": ("xla", "fp32"),
+    "xla_high": ("xla_high", "fp32"),
+    "bf16": ("bf16", "bf16"),
+    "int8": ("int8", "int8"),
+}
 
 
 def _not_ported(what: str) -> ValueError:
@@ -139,10 +159,14 @@ class VectorStore:
         # device-resident state (set by load_collection)
         self._dev: Optional[Dict[str, torch.Tensor]] = None
         self._semantic_vectors: Optional[np.ndarray] = None
+        self._chunkstore = None  # ops/chunk_stream state (method="chunkstream")
         self._loaded = False
         self._searches = 0
+        # queries of the certified methods, those certified, and batches
+        # redone on the exact path in finalize()
+        self._cert = {"queries": 0, "certified": 0, "redos": 0}
         # finalize() runs on the serving host pool, so with depth-2
-        # pipelining two batches can bump the stats counter concurrently
+        # pipelining two batches can bump the stats counters concurrently
         self._searches_lock = threading.Lock()
         self._created_at = time.time()
 
@@ -211,6 +235,7 @@ class VectorStore:
                 )
         self._loaded = False  # device state is stale
         self._dev = None
+        self._chunkstore = None  # covers only the old rows
         self._title_rows = None  # exact-title map misses the new rows
         return len(records)
 
@@ -296,8 +321,33 @@ class VectorStore:
     def release_collection(self) -> bool:
         """Drop device tensors (reference analog: milvus_service.py:411)."""
         self._dev = None
+        self._chunkstore = None
         self._loaded = False
         return True
+
+    def _chunkstream_scan(self):
+        scan = self.config.chunkstream_scan
+        if scan not in CHUNKSTREAM_SCANS:
+            raise ValueError(
+                f"CHUNKSTREAM_SCAN={scan!r}: one of {', '.join(CHUNKSTREAM_SCANS)}"
+            )
+        return CHUNKSTREAM_SCANS[scan]
+
+    def _ensure_chunkstore(self) -> "chunk_stream.ChunkStore":
+        """Lazily build the chunk-select state (weight-folded rows in the
+        scan dtype, ops/chunk_stream.py) the first time method="chunkstream"
+        is requested, from the resident fp32 corpus. The raw rows are the
+        resident corpus itself when its padding is already a multiple of
+        the chunk store's (the default ``pad_multiple``); the residency cost
+        is then one more (N_pad, D) matrix in the scan dtype (fp32 = the
+        corpus again, bf16 half, int8 a quarter plus scales)."""
+        if self._chunkstore is None:
+            _, scan_dtype = self._chunkstream_scan()
+            self._chunkstore = chunk_stream.build_device(
+                self._dev["corpus"], self._dev["weights"],
+                scan_dtype=scan_dtype, n_real=self.num_entities,
+            )
+        return self._chunkstore
 
     def clear_collection(self) -> bool:
         self.release_collection()
@@ -343,12 +393,16 @@ class VectorStore:
         level-weighted and sorted desc (reference: milvus_service.py:271-316,
         which handles one query; here B queries cost one kernel launch).
 
-        Enqueues the scoring kernel and ``torch.topk`` and returns a
-        PendingSearch whose ``finalize()`` copies the results to the host
-        and builds the hits. ``method`` is a per-request override of the
-        configured default; ``ef_search`` belongs to the unported HNSW
-        path and is accepted for signature parity. Query tensors stay on
-        the device; host arrays are copied up once."""
+        Enqueues the method's kernels and ``torch.topk`` without waiting
+        and returns a PendingSearch whose ``finalize()`` reads the
+        certificate of "streaming" and "chunkstream" (redoing an
+        uncertified batch on the exact path), copies the results to the
+        host and builds the hits. ``method`` is a per-request override of
+        the configured default; "streaming" with k > 128 takes the
+        materialized exact path, as in the JAX package. ``ef_search``
+        belongs to the unported HNSW path and is accepted for signature
+        parity. Query tensors stay on the device; host arrays are copied
+        up once."""
         method = method or self.config.search_method
         on_device = isinstance(query_vectors, torch.Tensor)
         if on_device:
@@ -367,15 +421,41 @@ class VectorStore:
         if not self._loaded and not self.load_collection():
             return PendingSearch(hits=[[] for _ in range(q.shape[0])])
         dev = self._dev
-        device = dev["corpus"].device
-        q = q.to(device, torch.float32) if on_device else torch.from_numpy(q).to(device)
-        vals, idx = fused_search(
-            q, dev["corpus"], dev["weights"], dev["mask"], k=k_eff, method=method
-        )
+        corpus, weights, mask = dev["corpus"], dev["weights"], dev["mask"]
+        q = q.to(corpus.device, torch.float32) if on_device else torch.from_numpy(q).to(corpus.device)
+        cert = None  # set by the certified methods; read in finalize()
+        if method == "chunkstream":
+            if corpus.dtype != torch.float32:
+                raise ValueError(
+                    "chunkstream requires fp32 device residency "
+                    "(STORE_DEVICE_DTYPE=float32)"
+                )
+            engine, _ = self._chunkstream_scan()
+            vals, idx, cert = chunk_stream.search(
+                self._ensure_chunkstore(), q, k=k_eff, scan=engine
+            )
+        elif method == "streaming" and k_eff <= STREAMING_K_MAX:
+            vals, idx, cert = streaming_topk(
+                q, corpus, weights, mask, k=k_eff, guarantee=False
+            )
+        else:
+            vals, idx = fused_search(q, corpus, weights, mask, k=k_eff, method=method)
         b = q.shape[0]
 
         def _finalize():
-            hits = self.build_hits(vals.cpu().numpy(), idx.cpu().numpy())
+            v, i = vals, idx
+            if cert is not None:
+                certified = int(cert.sum())
+                with self._searches_lock:
+                    self._cert["queries"] += b
+                    self._cert["certified"] += certified
+                    self._cert["redos"] += certified < b
+                if certified < b:
+                    # near-ties at the candidate boundary: redo the whole
+                    # batch on the exact path (the certified methods'
+                    # host-mediated exactness contract)
+                    v, i = fused_search(q, corpus, weights, mask, k=k_eff)
+            hits = self.build_hits(v.cpu().numpy(), i.cpu().numpy())
             with self._searches_lock:
                 self._searches += b
             return hits
@@ -438,16 +518,24 @@ class VectorStore:
             },
             "loaded": self._loaded,
             "searches_served": self._searches,
+            "certificate": dict(self._cert),
             "memory": self.get_memory_usage(),
         }
 
     def get_memory_usage(self) -> Dict:
         """Estimate = n·dim·4 bytes (formula parity: milvus_service.py:515);
         ``device_vector_bytes`` is the residency cost under the configured
-        dtype (bf16 halves it)."""
+        dtype (bf16 halves it); ``chunkstore_device_bytes`` is what a built
+        chunk store adds on top (its scan matrix and scales, and its raw
+        rows where they are not the resident corpus itself)."""
         vector_bytes = self.num_entities * self.dim * 4
         per_elem = {"float32": 4, "bfloat16": 2}.get(self.config.device_dtype, 4)
         device_bytes = self.num_entities * self.dim * per_elem
+        cs, chunk_bytes = self._chunkstore, 0
+        if cs is not None:
+            chunk_bytes = cs.device_bytes
+            if self._dev is None or cs.corpus.data_ptr() != self._dev["corpus"].data_ptr():
+                chunk_bytes += cs.corpus.numel() * 4
         return {
             "num_entities": self.num_entities,
             "dim": self.dim,
@@ -457,6 +545,7 @@ class VectorStore:
             "device_vector_mb": round(device_bytes / 1024 / 1024, 2),
             "device_resident": self._loaded,
             "device_dtype": self.config.device_dtype,
+            "chunkstore_device_bytes": chunk_bytes,
             "sharded": False,
         }
 

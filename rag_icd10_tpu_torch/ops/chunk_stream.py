@@ -1,0 +1,476 @@
+"""Streaming chunk-select search: the huge-corpus scaling path.
+
+Counterpart of rag_icd10_tpu/ops/chunk_stream.py. Replaces the
+reference's Milvus FLAT scan (services/milvus_service.py:271-316) for
+corpora where the (B, N) score matrix should never reach device memory.
+Two passes:
+
+1. **Chunk maxima** (K3, K4; ``csrc/chunk_max.cu``) over the
+   weight-folded corpus ``F = C * diag(w)``: for each query, the maximum
+   weighted score of every 128-row chunk, (B, N/128). F is stored in the
+   scan dtype: fp32 (exact), bf16 (half the bytes) or int8 with per-row
+   scales (a quarter). The TPU kernels keep F transposed, (D, N), and
+   write (N/128, B) only for Mosaic's layouts; the port keeps F (N, D)
+   row-major and writes (B, N/128).
+2. **Block gather + exact re-score** (K5; ``csrc/gather_rescore.cu``):
+   the top ``mc`` chunks of each query are read as contiguous 128-row
+   blocks of the raw fp32 corpus and scored in IEEE fp32.
+
+Exactness is certified per query, as in the JAX package: every row of an
+unfetched chunk scores at most the mc-th chunk maximum plus a
+scan-dependent epsilon. Padding rows fold to zero (score 0 in pass 1,
+which only overestimates a partly padded chunk's bound) and fully padded
+chunks are masked. fp32 scans still carry ``EPS_FP32_DOT``, because pass
+1 scores folded rows, dot(q, w*c), while pass 2 scores dot(q, c)*w, and
+the two roundings differ. bf16 and int8 scans widen the bound by the
+exact build-time quantization residual (Cauchy-Schwarz:
+|dot(q, c_hat - c)| <= ||q|| * max_row ||c_hat - c||) plus the query's
+bf16 rounding. Pass 2 is exact fp32 for every scan, so a certified
+result is exact whatever the scan dtype.
+
+Each kernel wrapper launches its kernel on a CUDA tensor (or raises) and
+computes its plain version on a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import threading
+from dataclasses import dataclass
+from typing import Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from . import cuda_build
+from .fused_score import fused_search
+from .quantized import quantize_rows
+from .rerank import EPS_HIGH_DOT
+
+CHUNK = 128  # corpus rows per chunk
+_launch_lock = threading.Lock()
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+# fp32 dot rounding gap between pass 1 (weight-folded rows) and pass 2
+# (raw dot x weight): both are fp32 roundings of the same real value, and
+# any fp32 sum of d <= 768 products, in any summation order (the kernels'
+# sequential fmaf order, cuBLAS's blocked order), errs by at most about
+# (d + 1) * 2^-24 * ||q|| * ||c|| = 4.6e-5; doubled for the two conventions
+# that is 9.2e-5 < 1e-4. The JAX package's value holds unchanged.
+EPS_FP32_DOT = 1e-4
+# worst-case relative l2 error of rounding the query to bf16: round to
+# nearest (__float2bfloat16_rn in the kernels, Tensor.to(bfloat16) in the
+# plain versions) errs by at most half an ulp, 2^-9, per element, so
+# ||q - bf16(q)|| <= 2^-9 ||q||; the 1.25x margin is the JAX package's.
+EPS_BF16_VEC = 1.25 * 2.0 ** -9
+
+SCANS = ("pallas", "xla", "xla_high", "bf16", "int8")
+_SCAN_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
+
+
+# --------------------------------------------------------------- pass 1
+
+
+def chunk_maxima_reference(
+    queries: torch.Tensor,
+    folded: torch.Tensor,
+    scales: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain version of ``chunk_maxima``: (B, N) scores by matmul, then the
+    max over each 128-column chunk. An fp32 F is scored in IEEE fp32
+    (TF32 off); bf16 and int8 score bf16(q) against the exactly widened
+    values with fp32 sums (int8 then times its row scale)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b = queries.shape[0]
+    n = folded.shape[0]
+    q = queries.to(torch.float32)
+    if folded.dtype != torch.float32:
+        q = q.to(torch.bfloat16).to(torch.float32)
+    s = torch.matmul(q, folded.to(torch.float32).T)
+    if folded.dtype == torch.int8:
+        s = s * scales[None, :]
+    return s.view(b, n // CHUNK, CHUNK).amax(dim=2)
+
+
+@functools.cache
+def _chunk_max_kernel():
+    fn = cuda_build.load("chunk_max").chunk_max_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def chunk_maxima(
+    queries: torch.Tensor,
+    folded: torch.Tensor,
+    scales: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """(B, D) x (N, D) weight-folded -> (B, N/128) weighted chunk maxima;
+    the (B, N) scores stay in registers. ``folded`` is fp32, bf16 or int8
+    (then ``scales`` (N,) fp32). N % 128 == 0. ``chunk_maxima.launches``
+    counts launches of the fp32 and bf16 paths (K3),
+    ``chunk_maxima.launches_int8`` those of the int8 path (K4)."""
+    b, d = queries.shape
+    n, d2 = folded.shape
+    if d != d2:
+        raise ValueError(f"query dim {d} != corpus dim {d2}")
+    if n % CHUNK:
+        raise ValueError(f"N={n}: chunk maxima need N % {CHUNK} == 0")
+    int8 = folded.dtype == torch.int8
+    if int8 and (scales is None or tuple(scales.shape) != (n,)):
+        raise ValueError(f"an int8 corpus needs scales of shape ({n},)")
+    if folded.dtype not in _SCAN_DTYPES.values():
+        raise TypeError(f"corpus dtype {folded.dtype}: float32, bfloat16 or int8")
+    if folded.device.type == "cpu":
+        return chunk_maxima_reference(queries, folded, scales)
+    if folded.device.type != "cuda":
+        raise ValueError(f"unsupported device {folded.device}")
+    if queries.device != folded.device or (int8 and scales.device != folded.device):
+        raise ValueError("queries, corpus and scales must share one device")
+    if not folded.is_contiguous():
+        raise ValueError("corpus must be contiguous")
+    if d % (16 if int8 else 8):
+        raise ValueError(f"D={d}: rows are read 16 bytes at a time")
+    q = queries.to(torch.float32).contiguous()
+    sc = scales.to(torch.float32).contiguous() if int8 else q
+    if q.data_ptr() % 16 or folded.data_ptr() % 16:
+        raise ValueError("queries and corpus must be 16-byte aligned")
+    out = torch.empty((b, n // CHUNK), dtype=torch.float32, device=folded.device)
+    if b == 0 or n == 0:
+        return out
+    dtype = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[folded.dtype]
+    with torch.cuda.device(folded.device):
+        err = _chunk_max_kernel()(
+            q.data_ptr(), folded.data_ptr(), sc.data_ptr(), out.data_ptr(),
+            b, n, d, dtype, torch.cuda.current_stream().cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"chunk_max kernel launch failed: CUDA error {err}")
+    with _launch_lock:
+        if int8:
+            chunk_maxima.launches_int8 += 1
+        else:
+            chunk_maxima.launches += 1
+    return out
+
+
+chunk_maxima.launches = 0
+chunk_maxima.launches_int8 = 0
+
+
+# --------------------------------------------------------------- pass 2
+
+
+def gather_rescore_reference(
+    queries: torch.Tensor, corpus: torch.Tensor, chunk_ids: torch.Tensor
+) -> torch.Tensor:
+    """Plain version of ``gather_rescore``: gather the chunks' rows, then
+    one batched fp32 matrix-vector product (TF32 off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, mc = chunk_ids.shape
+    n, d = corpus.shape
+    rows = corpus.view(n // CHUNK, CHUNK, d)[chunk_ids.long()]
+    rows = rows.view(b, mc * CHUNK, d)
+    q = queries.to(torch.float32)[:, :, None]
+    return torch.bmm(rows, q).squeeze(2)
+
+
+@functools.cache
+def _rescore_kernel():
+    fn = cuda_build.load("gather_rescore").gather_rescore_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def gather_rescore(
+    queries: torch.Tensor, corpus: torch.Tensor, chunk_ids: torch.Tensor
+) -> torch.Tensor:
+    """(B, mc * 128) IEEE fp32 raw scores of the selected chunks' rows:
+    column ``i * 128 + r`` is row ``chunk_ids[b, i] * 128 + r``. The raw
+    (not weight-folded) fp32 corpus, N % 128 == 0; any B.
+    ``gather_rescore.launches`` counts kernel launches."""
+    b, d = queries.shape
+    n, d2 = corpus.shape
+    if d != d2:
+        raise ValueError(f"query dim {d} != corpus dim {d2}")
+    if chunk_ids.ndim != 2 or chunk_ids.shape[0] != b:
+        raise ValueError(f"chunk_ids {tuple(chunk_ids.shape)} must be ({b}, mc)")
+    if n % CHUNK:
+        raise ValueError(f"N={n}: the re-score gathers whole {CHUNK}-row chunks")
+    if corpus.dtype != torch.float32:
+        raise TypeError(f"corpus dtype {corpus.dtype}: the re-score reads fp32 rows")
+    if corpus.device.type == "cpu":
+        return gather_rescore_reference(queries, corpus, chunk_ids)
+    if corpus.device.type != "cuda":
+        raise ValueError(f"unsupported device {corpus.device}")
+    if queries.device != corpus.device or chunk_ids.device != corpus.device:
+        raise ValueError("queries, corpus and chunk_ids must share one device")
+    if not corpus.is_contiguous():
+        raise ValueError("corpus must be contiguous")
+    if d % 4:
+        raise ValueError(f"D={d}: rows are copied 16 bytes at a time, D % 4 == 0")
+    q = queries.to(torch.float32).contiguous()
+    ids = chunk_ids.to(torch.int32).contiguous()
+    if q.data_ptr() % 16 or corpus.data_ptr() % 16:
+        raise ValueError("queries and corpus must be 16-byte aligned")
+    mc = ids.shape[1]
+    out = torch.empty((b, mc * CHUNK), dtype=torch.float32, device=corpus.device)
+    if b == 0 or mc == 0:
+        return out
+    with torch.cuda.device(corpus.device):
+        err = _rescore_kernel()(
+            q.data_ptr(), corpus.data_ptr(), ids.data_ptr(), out.data_ptr(),
+            b, n // CHUNK, d, mc, torch.cuda.current_stream().cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"gather_rescore kernel launch failed: CUDA error {err}")
+    with _launch_lock:
+        gather_rescore.launches += 1
+    return out
+
+
+gather_rescore.launches = 0
+
+
+# ---------------------------------------------------------------- state
+
+
+@dataclass
+class ChunkStore:
+    """Device state for the streaming chunk-select path. The fields mean
+    what the JAX package's mean; only the layout of the scanned corpus
+    differs.
+
+    folded:  (N_pad, D) weight-folded rows ``w_i * c_i``, row-major (the
+             JAX package keeps them transposed as ``corpus_t`` (D, N_pad)),
+             in the scan dtype: fp32, bf16 or int8 (per-row ``scales``)
+    corpus:  (N_pad, D) fp32 raw rows (pass 2's exact re-score)
+    weights / mask: (N_pad,) fp32 (pass-2 epilogue and padding)
+    bound_scale: max ||w_i * c_i|| over folded rows, the certificate scale
+    resid_max: max over rows of ||fold_i - dequant(quant(fold_i))||_2,
+               measured at build on the stored tensor: the Cauchy-Schwarz
+               term of the reduced-precision scans
+    """
+
+    folded: torch.Tensor
+    corpus: torch.Tensor
+    weights: torch.Tensor
+    mask: torch.Tensor
+    n_real: int
+    bound_scale: float = 1.2
+    scan_dtype: str = "fp32"
+    scales: Optional[torch.Tensor] = None  # (N_pad,) fp32, int8 only
+    resid_max: float = 0.0
+
+    @classmethod
+    def build(
+        cls,
+        vectors: np.ndarray,
+        weights: np.ndarray,
+        tile_cap: int = 2048,
+        scan_dtype: str = "fp32",
+        device: Union[str, torch.device] = "cuda",
+    ) -> "ChunkStore":
+        """Host arrays in: copy them to ``device`` and delegate to
+        ``build_device``, so exactly one spelling of the pad, fold,
+        quantize and residual arithmetic exists."""
+        from ..utils.device import resolve_device
+
+        dev = resolve_device(device)
+        v = torch.from_numpy(np.ascontiguousarray(vectors, np.float32)).to(dev)
+        w = torch.from_numpy(np.ascontiguousarray(weights, np.float32)).to(dev)
+        return build_device(v, w, tile_cap=tile_cap, scan_dtype=scan_dtype)
+
+    @property
+    def device_bytes(self) -> int:
+        """Bytes of the scan state (folded rows and scales)."""
+        extra = self.scales.numel() * 4 if self.scales is not None else 0
+        return self.folded.numel() * self.folded.element_size() + extra
+
+
+def build_device(
+    vectors: torch.Tensor,
+    weights: torch.Tensor,
+    tile_cap: int = 2048,
+    scan_dtype: str = "fp32",
+    n_real: Optional[int] = None,
+) -> ChunkStore:
+    """ChunkStore.build for tensors already on the device: pad to a
+    multiple of ``tile_cap`` rows, fold the weights in, quantize, and
+    measure the exact residual, all where the tensors lie.
+
+    ``n_real`` says that only the first ``n_real`` rows are real and the
+    rest are padding with zero weight (a store's padded corpus); when
+    ``vectors`` is then already fp32, contiguous and a multiple of
+    ``tile_cap`` rows, the store keeps it as ``corpus`` without a copy."""
+    if scan_dtype not in _SCAN_DTYPES:
+        raise ValueError(f"scan_dtype={scan_dtype!r}: fp32, bf16 or int8")
+    n, _ = vectors.shape
+    n_real = n if n_real is None else n_real
+    n_pad = _cdiv(n, tile_cap) * tile_cap
+    cp = vectors.to(torch.float32)
+    wp = weights.to(torch.float32)
+    if n_pad != n:
+        cp = torch.nn.functional.pad(cp, (0, 0, 0, n_pad - n))
+        wp = torch.nn.functional.pad(wp, (0, n_pad - n))
+    cp = cp.contiguous()
+    rows = torch.arange(n_pad, device=cp.device)
+    mask = torch.where(
+        rows < n_real, torch.zeros((), device=cp.device),
+        torch.full((), -1e30, device=cp.device),
+    ).to(torch.float32)
+    folded = cp * wp[:, None]
+    bscale = torch.sqrt(torch.max(torch.sum(folded * folded, dim=1)))
+    scales = None
+    if scan_dtype == "bf16":
+        stored = folded.to(torch.bfloat16)
+        deq = stored.to(torch.float32)
+    elif scan_dtype == "int8":
+        stored, scales = quantize_rows(folded)  # the one quantization law
+        deq = stored.to(torch.float32) * scales[:, None]
+    else:
+        stored = deq = folded
+    resid = torch.sqrt(torch.max(torch.sum((folded - deq) ** 2, dim=1)))
+    return ChunkStore(
+        folded=stored.contiguous(),
+        corpus=cp,
+        weights=wp.contiguous(),
+        mask=mask,
+        n_real=n_real,
+        bound_scale=float(bscale) or 1.0,
+        scan_dtype=scan_dtype,
+        scales=scales,
+        resid_max=float(resid),
+    )
+
+
+# --------------------------------------------------------------- search
+
+
+def chunk_stream_search(
+    queries: torch.Tensor,
+    folded: torch.Tensor,
+    corpus: torch.Tensor,
+    weights: torch.Tensor,
+    mask: torch.Tensor,
+    k: int,
+    mc: int = 0,
+    n_real: int = 0,
+    scan: str = "pallas",
+    bound_scale: float = 1.2,
+    scales: Optional[torch.Tensor] = None,
+    resid_max: float = 0.0,
+    guarantee: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Exact weighted top-k over a ChunkStore's tensors. Returns
+    (values (B, k) fp32, indices (B, k) int32, certified (B,) bool).
+
+    scan, how pass 1 computes the chunk maxima:
+      "pallas"   the chunk-max kernel (K3 over fp32 or bf16, K4 over
+                 int8), following ``folded``'s stored dtype; (B, N) never
+                 reaches device memory;
+      "xla"      the plain version (matmul, then the chunk max) in the
+                 stored dtype: the JAX package's plain-XLA engine;
+      "xla_high" the plain version over fp32 in IEEE fp32, widened by
+                 EPS_HIGH_DOT (ops/rerank.py says why it is not TF32);
+      "bf16"/"int8" aliases of "xla" over a store of that dtype.
+    The certificate epsilon follows the stored dtype. Default
+    mc = max(2k, k + 16), capped at the chunk count; fetching every real
+    chunk certifies. ``guarantee=True`` reads the certificate (one host
+    sync) and redoes an uncertified batch on the exact K1 path."""
+    if scan not in SCANS:
+        raise ValueError(f"scan={scan!r}: one of {SCANS}")
+    b, d = queries.shape
+    n = corpus.shape[0]
+    nc = n // CHUNK
+    if mc <= 0:
+        mc = max(2 * k, k + 16)
+    mc = min(mc, nc)
+    if n_real == 0:
+        n_real = n
+    dtype = folded.dtype
+    if scan in ("bf16", "int8"):
+        if dtype != _SCAN_DTYPES[scan]:
+            raise ValueError(f"scan={scan!r} needs a {scan} store, got {dtype}")
+        scan = "xla"
+    if scan == "xla_high" and dtype != torch.float32:
+        raise ValueError(f"scan='xla_high' needs an fp32 store, got {dtype}")
+    queries = queries.to(torch.float32)
+
+    if scan == "pallas":
+        cm = chunk_maxima(queries, folded, scales)
+    else:
+        cm = chunk_maxima_reference(queries, folded, scales)
+    # fully padded chunks can never win; partly padded chunks keep their
+    # (possibly 0 from zero padding) max, a sound upper bound
+    nc_real = _cdiv(n_real, CHUNK)
+    if nc_real < nc:
+        cm[:, nc_real:] = float("-inf")
+    cvals, cidx = torch.topk(cm, mc, dim=1)
+    cidx = cidx.to(torch.int32)
+
+    raw = gather_rescore(queries, corpus, cidx)
+    long_idx = cidx.long()
+    wb = weights.view(nc, CHUNK)[long_idx].reshape(b, mc * CHUNK)
+    mb = mask.view(nc, CHUNK)[long_idx].reshape(b, mc * CHUNK)
+    scores = raw * wb + mb
+    vals, sel = torch.topk(scores, k, dim=1)
+    cols = (
+        long_idx[:, :, None] * CHUNK
+        + torch.arange(CHUNK, device=cidx.device)[None, None, :]
+    ).reshape(b, mc * CHUNK)
+    idx = torch.gather(cols, 1, sel).to(torch.int32)
+
+    # an unfetched row's true weighted score can exceed its chunk's
+    # measured maximum by the scan's rounding; pass-2 values are exact
+    q_norms = torch.sqrt(torch.sum(queries * queries, dim=1))
+    if dtype in (torch.bfloat16, torch.int8):
+        # Cauchy-Schwarz on the measured quantization residual, plus the
+        # query's bf16 rounding and the fp32 accumulation gap
+        eps = (resid_max + (EPS_BF16_VEC + EPS_FP32_DOT) * bound_scale) * q_norms
+    elif scan == "xla_high":
+        eps = EPS_HIGH_DOT * bound_scale * q_norms
+    else:
+        eps = EPS_FP32_DOT * bound_scale * q_norms
+    chunk_bound = cvals[:, mc - 1] + eps
+    if mc >= nc_real:
+        # every real chunk was re-scored exactly: the result is exact, and
+        # the bound test (k-th against the smallest fetched chunk max)
+        # would spuriously de-certify small corpora
+        certified = torch.ones((b,), dtype=torch.bool, device=vals.device)
+    else:
+        certified = vals[:, k - 1] >= chunk_bound
+
+    if guarantee and not bool(certified.all()):
+        with _launch_lock:
+            chunk_stream_search.redos += 1
+        vals, idx = fused_search(queries, corpus, weights, mask, k)
+    return vals, idx, certified
+
+
+chunk_stream_search.redos = 0
+
+
+def search(
+    store: ChunkStore,
+    queries: torch.Tensor,
+    k: int,
+    mc: int = 0,
+    scan: Optional[str] = None,
+    guarantee: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``chunk_stream_search`` bound to a ChunkStore's tensors. scan
+    defaults to the kernel ("pallas"), which follows the store's dtype."""
+    q = torch.as_tensor(queries, dtype=torch.float32).to(store.corpus.device)
+    return chunk_stream_search(
+        q, store.folded, store.corpus, store.weights, store.mask, k=k,
+        mc=mc, n_real=store.n_real, scan=scan or "pallas",
+        bound_scale=store.bound_scale, scales=store.scales,
+        resid_max=store.resid_max, guarantee=guarantee,
+    )

@@ -4,7 +4,8 @@ Each source under ``ops/csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface and loaded
 with ``ctypes``; no PyTorch headers are involved, so a build takes
 seconds. Libraries go to ``build/torch_kernels/`` at the repository root,
-named by a hash of the source and flags, so an edited source is rebuilt
+named by a hash of the source, the shared ``*.cuh`` headers and the
+flags, so an edited source or header is rebuilt
 and an unchanged one is reused. Nothing is compiled at import time: the
 first launch builds, and ``build_all`` builds every source at once (one
 ``nvcc`` per source, all started together).
@@ -23,7 +24,10 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES: Dict[str, Path] = {"fused_score": CSRC / "fused_score.cu"}
+SOURCES: Dict[str, Path] = {
+    name: CSRC / f"{name}.cu"
+    for name in ("fused_score", "slot_stream", "chunk_max", "gather_rescore")
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -44,8 +48,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # shared by several sources
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -1,18 +1,24 @@
-"""Fused scoring kernel: Q·Cᵀ × level-weight + padding mask, then top-k.
+"""Fused scoring kernels: Q·Cᵀ × level-weight + padding mask, then top-k.
 
-Counterpart of rag_icd10_tpu/ops/pallas_score.py for the served ``exact``
-and ``approx`` methods. One pass over the corpus computes, for a whole
-batch of queries, the level-weighted cosine scores that the reference
-produces with a Milvus FLAT/IP scan followed by a Python re-weighting
-loop (reference: services/milvus_service.py:271-316).
+Counterpart of rag_icd10_tpu/ops/pallas_score.py for the served
+``exact``, ``approx`` and ``streaming`` methods. One pass over the corpus
+computes, for a whole batch of queries, the level-weighted cosine scores
+that the reference produces with a Milvus FLAT/IP scan followed by a
+Python re-weighting loop (reference: services/milvus_service.py:271-316).
 
-On a CUDA tensor ``fused_weighted_scores`` launches the hand-written
-kernel ``csrc/fused_score.cu`` (the source note there gives its bound
-and design) or raises; on a CPU tensor it computes the plain version,
-``flat_topk.weighted_scores_reference``, which the kernel is held
-against. The TPU kernel's VMEM tile budget (``default_tile_n``) has no
-meaning here: the CUDA kernel picks its own tiles and masks the ragged
-edge, so N need not be a multiple of anything.
+- ``fused_weighted_scores`` (K1, ``csrc/fused_score.cu``) writes the
+  (B, N) scores; ``fused_search`` takes ``torch.topk`` of them.
+- ``streaming_candidates`` (K2, ``csrc/slot_stream.cu``) keeps a running
+  top-S per slot instead, so the (B, N) scores never reach device memory;
+  ``streaming_topk`` selects the top-k from its candidates and certifies
+  it against the slots' bounds.
+
+On a CUDA tensor each wrapper launches its hand-written kernel (the
+source notes give bound and design) or raises; on a CPU tensor it
+computes its plain version, which the kernel is held against. The TPU
+kernels' VMEM tile budgets (``default_tile_n``, ``streaming_tile_n``)
+have no meaning here: the CUDA kernels pick their own tiles and mask the
+ragged edge, so N need not be a multiple of anything.
 """
 
 from __future__ import annotations
@@ -28,6 +34,35 @@ from . import cuda_build
 from .flat_topk import weighted_scores_reference
 
 _launch_lock = threading.Lock()
+
+#: largest k the streaming method selects in-kernel; a larger k takes the
+#: materialized path, as in the JAX package (pallas_score.py:138)
+STREAMING_K_MAX = 128
+#: blocks the streaming kernel aims for: two waves on an H100's 132 SMs
+_STREAM_BLOCKS = 264
+
+
+def _check_cuda_inputs(queries, corpus, weights, mask):
+    """Device, dtype, layout and alignment checks shared by K1 and K2;
+    returns (q, w, mask) as contiguous fp32 on the corpus's device."""
+    if corpus.device.type != "cuda":
+        raise ValueError(f"unsupported device {corpus.device}")
+    for name, t in (("queries", queries), ("weights", weights), ("mask", mask)):
+        if t.device != corpus.device:
+            raise ValueError(f"{name} on {t.device}, corpus on {corpus.device}")
+    if corpus.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"corpus dtype {corpus.dtype}: float32 or bfloat16")
+    if not corpus.is_contiguous():
+        raise ValueError("corpus must be contiguous")
+    d = corpus.shape[1]
+    if d % 8:
+        raise ValueError(f"D={d}: the kernel reads rows 16 bytes at a time, D % 8 == 0")
+    q = queries.to(torch.float32).contiguous()  # bf16 -> fp32 is exact
+    w = weights.to(torch.float32).contiguous()
+    m = mask.to(torch.float32).contiguous()
+    if q.data_ptr() % 16 or corpus.data_ptr() % 16:
+        raise ValueError("queries and corpus must be 16-byte aligned")
+    return q, w, m
 
 
 @functools.cache
@@ -63,22 +98,7 @@ def fused_weighted_scores(
         )
     if corpus.device.type == "cpu":
         return weighted_scores_reference(queries, corpus, weights, mask, exact=exact)
-    if corpus.device.type != "cuda":
-        raise ValueError(f"unsupported device {corpus.device}")
-    for name, t in (("queries", queries), ("weights", weights), ("mask", mask)):
-        if t.device != corpus.device:
-            raise ValueError(f"{name} on {t.device}, corpus on {corpus.device}")
-    if corpus.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"corpus dtype {corpus.dtype}: float32 or bfloat16")
-    if not corpus.is_contiguous():
-        raise ValueError("corpus must be contiguous")
-    if d % 8:
-        raise ValueError(f"D={d}: the kernel reads rows 16 bytes at a time, D % 8 == 0")
-    q = queries.to(torch.float32).contiguous()  # bf16 -> fp32 is exact
-    w = weights.to(torch.float32).contiguous()
-    m = mask.to(torch.float32).contiguous()
-    if q.data_ptr() % 16 or corpus.data_ptr() % 16:
-        raise ValueError("queries and corpus must be 16-byte aligned")
+    q, w, m = _check_cuda_inputs(queries, corpus, weights, mask)
     out = torch.empty((b, n), dtype=torch.float32, device=corpus.device)
     if b == 0 or n == 0:
         return out
@@ -113,15 +133,193 @@ def fused_search(
 
     "exact" and "approx" both select with ``torch.topk`` (exact; see
     ``flat_topk.flat_search`` on why approx needs no separate path).
-    "streaming", the in-kernel top-k of the JAX package, is not yet
-    ported."""
+    "streaming" selects in-kernel through ``streaming_topk`` with its
+    guarantee (exact in every case) when k <= 128; a larger k takes the
+    materialized path, the JAX package's own rule, and is counted in
+    ``fused_search.streaming_over_k_max``."""
     if method == "streaming":
-        raise ValueError(
-            "search method 'streaming' (in-kernel streaming top-k) not yet "
-            "ported to rag_icd10_tpu_torch"
-        )
+        if k <= STREAMING_K_MAX:
+            vals, idx, _ = streaming_topk(
+                queries, corpus, weights, mask, k, exact=exact
+            )
+            return vals, idx
+        with _launch_lock:
+            fused_search.streaming_over_k_max += 1
+        method = "exact"
     if method not in ("exact", "approx"):
-        raise ValueError(f"fused_search method={method!r}: use exact or approx")
+        raise ValueError(
+            f"fused_search method={method!r}: use exact, approx or streaming"
+        )
     scores = fused_weighted_scores(queries, corpus, weights, mask, exact=exact)
     vals, idx = torch.topk(scores, k, dim=1)
     return vals, idx.to(torch.int32)
+
+
+fused_search.streaming_over_k_max = 0
+
+
+# ---------------------------------------------------------------------------
+# Streaming top-k (K2). The contract is the JAX package's: a candidate set
+# plus a sound bound on every corpus row outside it. The slot layout is the
+# port's own: P slots (a multiple of 128, chosen by ``slot_count``), slot p
+# holding rows p, p + P, p + 2P, ... The 128 lane slots of the TPU kernel
+# are one case of it (P = 128).
+# ---------------------------------------------------------------------------
+
+
+def slot_depth(k: int) -> int:
+    """Slot-state depth S for a target top-k, the JAX package's values: a
+    certificate failure needs S+1 of the global top-k in one slot; the
+    cap bounds the kernel's state (shared memory), correctness never
+    depends on S."""
+    return min(16, max(4, -(-k // 5) + 1))
+
+
+def slot_count(batch: int, n: int, k: int) -> int:
+    """Slot count P for the streaming kernel: a multiple of 128, doubled
+    while the kernel's blocks (8 queries x 128 slots each) stay within
+    two waves on the card and the P*S candidates stay within half of N.
+    More slots only make a certificate failure rarer; at P = 128 the
+    failure odds are the TPU kernel's."""
+    s = slot_depth(k)
+    m_tiles = -(-batch // 8)
+    p = 128
+    while m_tiles * (2 * p // 128) <= _STREAM_BLOCKS and 2 * p * s <= n // 2:
+        p *= 2
+    return p
+
+
+@functools.cache
+def _slot_kernel():
+    fn = cuda_build.load("slot_stream").slot_stream_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def streaming_candidates_reference(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    weights: torch.Tensor,
+    mask: torch.Tensor,
+    S: int,
+    slots: int,
+    exact: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of ``streaming_candidates``: the (B, N) scores, then
+    each slot's top S+1 by ``torch.topk``. Candidates are rank-major
+    (column ``rank * slots + p``); an empty candidate is (-inf, -1)."""
+    scores = weighted_scores_reference(queries, corpus, weights, mask, exact=exact)
+    b, n = scores.shape
+    steps = max(-(-n // slots), S + 1)
+    pad = scores.new_full((b, steps * slots - n), float("-inf"))
+    s3 = torch.cat([scores, pad], dim=1).view(b, steps, slots)
+    vals, step = torch.topk(s3, S + 1, dim=1)  # (B, S+1, P), descending
+    cand_vals = vals[:, :S].reshape(b, S * slots)
+    slot = torch.arange(slots, device=scores.device)
+    ids = (step[:, :S] * slots + slot).reshape(b, S * slots).to(torch.int32)
+    ids = torch.where(torch.isneginf(cand_vals), torch.full_like(ids, -1), ids)
+    return cand_vals, ids, vals[:, S].contiguous()
+
+
+def streaming_candidates(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    weights: torch.Tensor,
+    mask: torch.Tensor,
+    S: int,
+    slots: int,
+    exact: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Running top-S candidates per slot over the whole corpus.
+
+    Returns (cand_vals (B, slots*S) fp32, cand_ids (B, slots*S) int32,
+    bounds (B, slots) fp32): every corpus row NOT among the candidates
+    has weighted score <= the bound of its slot (row % slots). Modes as
+    ``fused_weighted_scores``. ``streaming_candidates.launches`` counts
+    kernel launches."""
+    b, d = queries.shape
+    n, d2 = corpus.shape
+    if d != d2:
+        raise ValueError(f"query dim {d} != corpus dim {d2}")
+    if tuple(weights.shape) != (n,) or tuple(mask.shape) != (n,):
+        raise ValueError(
+            f"weights {tuple(weights.shape)} and mask {tuple(mask.shape)} "
+            f"must both be ({n},)"
+        )
+    if slots <= 0 or slots % 128 or not 1 <= S <= 16:
+        raise ValueError(f"slots={slots} (a multiple of 128), S={S} (1..16)")
+    if corpus.device.type == "cpu":
+        return streaming_candidates_reference(
+            queries, corpus, weights, mask, S, slots, exact=exact
+        )
+    q, w, m = _check_cuda_inputs(queries, corpus, weights, mask)
+    dev = corpus.device
+    cand_vals = torch.empty((b, slots * S), dtype=torch.float32, device=dev)
+    cand_ids = torch.empty((b, slots * S), dtype=torch.int32, device=dev)
+    bounds = torch.empty((b, slots), dtype=torch.float32, device=dev)
+    if b == 0:
+        return cand_vals, cand_ids, bounds
+    bf16 = corpus.dtype == torch.bfloat16
+    with torch.cuda.device(dev):
+        err = _slot_kernel()(
+            q.data_ptr(), corpus.data_ptr(), w.data_ptr(), m.data_ptr(),
+            cand_vals.data_ptr(), cand_ids.data_ptr(), bounds.data_ptr(),
+            b, n, d, slots, S, int(bf16), int(bf16 or not exact),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"slot_stream kernel launch failed: CUDA error {err}")
+    with _launch_lock:
+        streaming_candidates.launches += 1
+    return cand_vals, cand_ids, bounds
+
+
+streaming_candidates.launches = 0
+
+
+def streaming_topk(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    weights: torch.Tensor,
+    mask: torch.Tensor,
+    k: int,
+    exact: bool = True,
+    guarantee: bool = True,
+    slots: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(B, D) x (N, D) -> level-weighted (values (B, k), indices (B, k)
+    int32, certified (B,) bool) without (B, N) scores in device memory.
+    k must be <= 128.
+
+    Slot candidates (K2) + ONE ``torch.topk`` over (B, slots*S). A query
+    is certified when its k-th value is >= the largest slot bound: no
+    unfetched row can beat it, so at most ties were missed.
+
+    ``guarantee=True`` returns the exact top-k in every case: it reads the
+    certificate with one host sync and, if any query failed, redoes the
+    batch on the K1 path at the same precision (counted in
+    ``streaming_topk.redos``). ``lax.cond`` of the JAX package has no
+    sync-free counterpart in eager PyTorch. ``guarantee=False`` does not
+    sync and leaves the check to the caller (the store's ``finalize``).
+    ``slots=0`` picks the slot count with ``slot_count``."""
+    b = queries.shape[0]
+    n = corpus.shape[0]
+    if not 1 <= k <= STREAMING_K_MAX:
+        raise ValueError(f"streaming_topk k={k}: 1 <= k <= {STREAMING_K_MAX}")
+    S = slot_depth(k)
+    slots = slots or slot_count(b, n, k)
+    cand_vals, cand_ids, bounds = streaming_candidates(
+        queries, corpus, weights, mask, S, slots, exact=exact
+    )
+    vals, sel = torch.topk(cand_vals, k, dim=1)
+    idx = torch.gather(cand_ids, 1, sel)
+    certified = vals[:, k - 1] >= bounds.amax(dim=1)
+    if guarantee and not bool(certified.all()):
+        with _launch_lock:
+            streaming_topk.redos += 1
+        vals, idx = fused_search(queries, corpus, weights, mask, k, exact=exact)
+    return vals, idx, certified
+
+
+streaming_topk.redos = 0

@@ -215,11 +215,13 @@ class Engine:
 
     def _warmup_extra_methods(self, sizes) -> None:
         """Run the opt-in per-request search methods
-        (WARMUP_SEARCH_METHODS) once per batch size. Only methods this
-        package serves (exact, approx) are warmed; the others in the list
-        (the default names fast and streaming) are not yet ported and are
-        skipped with a log line. Drives ``store.search`` directly with
-        random unit vectors."""
+        (WARMUP_SEARCH_METHODS) once per batch size. The methods this
+        package serves (exact, approx, streaming, chunkstream) are warmed:
+        their first launches load the kernel libraries, and chunkstream's
+        builds the chunk store. The others in the list (fast, from the
+        default "fast,streaming") are not yet ported and are skipped with
+        a log line. Drives ``store.search`` directly with random unit
+        vectors."""
         import numpy as np
 
         from .index.vector_store import SERVED_METHODS, UNPORTED_METHODS

@@ -22,6 +22,8 @@ from rag_icd10_tpu.models import convert_hf as jconvert
 from rag_icd10_tpu_torch.models import bert as tbert
 from rag_icd10_tpu_torch.models.convert_hf import load_params, params_from_jax
 
+torch.set_num_threads(2)  # the suite runs several test processes at once
+
 SMALL = dict(
     vocab_size=97, hidden_size=64, num_layers=2, num_heads=4,
     intermediate_size=128, max_position_embeddings=64,

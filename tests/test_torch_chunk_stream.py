@@ -1,0 +1,269 @@
+"""The ``chunkstream`` method's ops: the port's ops/chunk_stream.py and
+ops/quantized.py (kernel wrappers computing their plain versions on the
+CPU) against the JAX package's, whose Pallas kernels run in interpret
+mode, on the same numpy inputs.
+
+Tolerances, each with its reason:
+- ``quantize_rows``: bit for bit. The chunkstream certificate measures
+  its residual against exactly this law.
+- ``bound_scale`` and ``resid_max``: rtol 1e-6 and 1e-4. Both are square
+  roots of fp32 sums of D squares, summed in different orders by XLA and
+  by PyTorch; a residual is a small difference of close numbers.
+- Stored rows (fp32 folded rows, bf16 rows, int8 values): bit for bit.
+  int8 scales: bit for bit with ``quantize_rows`` of the folded rows, and
+  within 1 ulp (rtol 2.4e-7) of the JAX store's: XLA compiles the JAX
+  build's ``absmax / 127`` under jit as a multiplication by the
+  reciprocal, one ulp off its own law in a few percent of rows. Each
+  side measures its residual on the scales it stores, so both
+  certificates stay sound.
+- Chunk maxima and raw re-scores: atol 1e-5. IEEE fp32 (bf16 and int8:
+  bf16(q) times exactly widened values, products exact in fp32) summed
+  in different orders over D = 128 products of unit vectors.
+- Search values: atol 1e-5, ids equal (the exact top-k of random data
+  has no ties).
+
+The layout of the scanned corpus differs on purpose: the JAX package
+stores it transposed (``corpus_t``, (D, N)), the port row-major
+(``folded``, (N, D)); the tests compare what the layout does not change.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rag_icd10_tpu.ops import chunk_stream as jcs
+from rag_icd10_tpu.ops.quantized import quantize_rows as jquantize
+from rag_icd10_tpu_torch.ops import chunk_stream as tcs
+from rag_icd10_tpu_torch.ops.quantized import quantize_rows
+
+torch.set_num_threads(2)  # the suite runs several test processes at once
+
+TOL = 1e-5
+
+
+def t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def make_problem(n=3000, d=128, b=8, seed=0):
+    rng = np.random.default_rng(seed)
+    vecs = rng.standard_normal((n, d)).astype(np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    w = rng.choice([0.8, 1.0, 1.2], n).astype(np.float32)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    return vecs, w, q
+
+
+def brute(q, vecs, w, k):
+    expected = (q @ vecs.T) * w[None, :]
+    eidx = np.argsort(-expected, axis=1)[:, :k]
+    return np.take_along_axis(expected, eidx, axis=1), eidx
+
+
+def _stores(vecs, w, scan_dtype, tile_cap=512):
+    jstore = jcs.ChunkStore.build(vecs, w, batch_hint=8, tile_cap=tile_cap, scan_dtype=scan_dtype)
+    tstore = tcs.ChunkStore.build(vecs, w, tile_cap=tile_cap, scan_dtype=scan_dtype, device="cpu")
+    return jstore, tstore
+
+
+def _dequant_rows(store):
+    """A store's scanned rows as fp32 (N, D), whatever its layout."""
+    if isinstance(store, tcs.ChunkStore):
+        rows = store.folded.to(torch.float32)
+        if store.scales is not None:
+            rows = rows * store.scales[:, None]
+        return rows.numpy()
+    rows = np.asarray(store.corpus_t.astype(jnp.float32)).T
+    if store.scales is not None:
+        rows = rows * np.asarray(store.scales)[:, None]
+    return rows
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_quantize_rows_bit_for_bit(seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((300, 96)) * rng.uniform(0.01, 5, (300, 1))).astype(np.float32)
+    x[7] = 0.0  # zero guard
+    x[8, :5] = [0.5, -0.5, 1.5, 127.0, -127.0]  # half-way cases round to even
+    q, s = quantize_rows(x)
+    jq, js = jquantize(x)
+    assert q.dtype == np.int8 and s.dtype == np.float32
+    np.testing.assert_array_equal(q, jq)
+    np.testing.assert_array_equal(s, js)
+    tq, ts = quantize_rows(t(x))
+    jq2, js2 = jquantize(jnp.asarray(x), xp=jnp)
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq2))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js2))
+
+
+@pytest.mark.parametrize("scan_dtype", ["fp32", "bf16", "int8"])
+def test_build_matches_jax(scan_dtype):
+    vecs, w, _ = make_problem(n=1000, d=64, seed=5)
+    jstore, tstore = _stores(vecs, w, scan_dtype)
+    assert tstore.n_real == jstore.n_real == 1000
+    assert tstore.scan_dtype == jstore.scan_dtype == scan_dtype
+    assert tstore.folded.shape == jstore.corpus_t.shape[::-1]
+    np.testing.assert_allclose(tstore.bound_scale, jstore.bound_scale, rtol=1e-6)
+    np.testing.assert_allclose(tstore.resid_max, jstore.resid_max, rtol=1e-4, atol=1e-7)
+    np.testing.assert_array_equal(tstore.corpus.numpy(), np.asarray(jstore.corpus))
+    np.testing.assert_array_equal(tstore.weights.numpy(), np.asarray(jstore.weights))
+    np.testing.assert_array_equal(tstore.mask.numpy(), np.asarray(jstore.mask))
+    if scan_dtype == "int8":
+        np.testing.assert_array_equal(tstore.folded.numpy(), np.asarray(jstore.corpus_t).T)
+        folded = np.asarray(jstore.corpus) * np.asarray(jstore.weights)[:, None]
+        np.testing.assert_array_equal(tstore.scales.numpy(), jquantize(folded)[1])
+        np.testing.assert_allclose(
+            tstore.scales.numpy(), np.asarray(jstore.scales), rtol=2.4e-7, atol=0
+        )
+        np.testing.assert_allclose(
+            _dequant_rows(tstore), _dequant_rows(jstore), rtol=2.4e-7, atol=0
+        )
+    else:
+        np.testing.assert_array_equal(_dequant_rows(tstore), _dequant_rows(jstore))
+        assert tstore.scales is None and jstore.scales is None
+
+
+def test_build_device_shares_padded_rows():
+    vecs, w, _ = make_problem(n=1000, d=64, seed=6)
+    padded = torch.zeros((1024, 64))
+    padded[:1000] = t(vecs)
+    wp = torch.zeros(1024)
+    wp[:1000] = t(w)
+    store = tcs.build_device(padded, wp, tile_cap=512, n_real=1000)
+    assert store.corpus.data_ptr() == padded.data_ptr()  # no copy
+    assert store.n_real == 1000 and bool((store.mask[1000:] < -1e29).all())
+    _, ref = _stores(vecs, w, "fp32")
+    np.testing.assert_array_equal(store.folded.numpy(), ref.folded.numpy())
+
+
+def _jax_chunk_maxima(q, jstore):
+    tile_n = jcs.transposed_tile_n(
+        q.shape[0], jstore.corpus_t.shape[1], q.shape[1],
+        itemsize=jstore.corpus_t.dtype.itemsize,
+    )
+    return np.asarray(jcs.chunk_maxima_transposed(
+        jnp.asarray(q), jstore.corpus_t, tile_n, scales=jstore.scales, interpret=True,
+    ))
+
+
+@pytest.mark.parametrize("scan_dtype", ["fp32", "bf16", "int8"])
+def test_chunk_maxima_matches_jax(scan_dtype):
+    vecs, w, q = make_problem(n=2048, d=128, seed=7)
+    jstore, tstore = _stores(vecs, w, scan_dtype)
+    want = _jax_chunk_maxima(q, jstore)
+    got = tcs.chunk_maxima(t(q), tstore.folded, tstore.scales)
+    assert got.shape == (8, 16) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL)
+    np.testing.assert_allclose(
+        tcs.chunk_maxima_reference(t(q), tstore.folded, tstore.scales).numpy(), want, atol=TOL
+    )
+
+
+@pytest.mark.parametrize("b", [8, 5, 13])
+def test_gather_rescore_matches_jax(b):
+    """B need not be a multiple of 8 in the port; the JAX kernel takes
+    QB = 8 queries a step, so its side is padded and sliced."""
+    vecs, _, q = make_problem(n=2048, d=64, b=b, seed=b)
+    rng = np.random.default_rng(b)
+    ids = rng.integers(0, 16, (b, 6)).astype(np.int32)
+    b8 = -(-b // 8) * 8
+    qp = np.zeros((b8, 64), np.float32)
+    qp[:b] = q
+    ip = np.zeros((b8, 6), np.int32)
+    ip[:b] = ids
+    want = np.asarray(jcs.gather_rescore(
+        jnp.asarray(qp), jnp.asarray(vecs), jnp.asarray(ip), mc=6, interpret=True,
+    ))[:b]
+    got = tcs.gather_rescore(t(q), t(vecs), t(ids))
+    assert got.shape == (b, 6 * 128)
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL)
+
+
+@pytest.fixture(scope="module")
+def problem():
+    return make_problem(n=3000, d=128, b=8, seed=0)
+
+
+@pytest.fixture(scope="module")
+def small_problem():
+    """2048 rows = 16 chunks; with mc = 6 the certificate decides."""
+    return make_problem(n=2048, d=64, b=8, seed=4)
+
+
+ENGINES = [
+    ("fp32", "pallas"), ("fp32", "xla"), ("fp32", "xla_high"),
+    ("bf16", "pallas"), ("bf16", "xla"), ("bf16", "bf16"),
+    ("int8", "pallas"), ("int8", "xla"), ("int8", "int8"),
+]
+
+
+@pytest.mark.parametrize("scan_dtype,scan", ENGINES)
+def test_search_matches_jax(small_problem, scan_dtype, scan):
+    vecs, w, q = small_problem
+    jstore, tstore = _stores(vecs, w, scan_dtype)
+    jvals, jidx, jcert = map(
+        np.asarray, jcs.search(jstore, q, k=10, mc=6, scan=scan, interpret=True)
+    )
+    vals, idx, cert = tcs.search(tstore, t(q), k=10, mc=6, scan=scan)
+    assert idx.dtype == torch.int32 and cert.dtype == torch.bool
+    np.testing.assert_allclose(vals.numpy(), jvals, atol=TOL)
+    np.testing.assert_array_equal(idx.numpy(), jidx)
+    np.testing.assert_array_equal(cert.numpy(), jcert)
+    evals, eidx = brute(q, vecs, w, 10)
+    for row in np.flatnonzero(cert.numpy()):
+        np.testing.assert_array_equal(idx[row].numpy(), eidx[row])
+
+
+def test_negative_score_regime(problem):
+    """All-negative scores: padding rows (folded zeros score 0 in pass 1)
+    must not leak into results, and the mask keeps the certificate sound."""
+    vecs, w, q = problem
+    _, tstore = _stores(vecs, w, "fp32")
+    vals, idx, cert = tcs.search(tstore, t(-q), k=10)
+    _, eidx = brute(-q, vecs, w, 10)
+    np.testing.assert_array_equal(idx.numpy(), eidx)
+    assert bool(cert.all()) and int(idx.max()) < len(vecs)
+
+
+def test_tiny_mc_decertifies_not_wrong(problem):
+    vecs, w, q = problem
+    _, tstore = _stores(vecs, w, "fp32")
+    _, idx, cert = tcs.search(tstore, t(q), k=10, mc=1)
+    _, eidx = brute(q, vecs, w, 10)
+    wrong = [r for r in range(8) if not np.array_equal(idx[r].numpy(), eidx[r])]
+    assert wrong  # one chunk cannot hold every query's top-10
+    assert not bool(cert[wrong].any())
+    # with the guarantee the batch is redone on the exact path
+    before = tcs.chunk_stream_search.redos
+    vals, idx, _ = tcs.search(tstore, t(q), k=10, mc=1, guarantee=True)
+    assert tcs.chunk_stream_search.redos == before + 1
+    np.testing.assert_array_equal(idx.numpy(), eidx)
+
+
+def test_all_chunks_fetched_certifies():
+    vecs, w, q = make_problem(n=500, d=64, b=8, seed=11)
+    _, tstore = _stores(vecs, w, "fp32", tile_cap=128)
+    nc = tstore.corpus.shape[0] // 128
+    _, idx, cert = tcs.search(tstore, t(q), k=10, mc=nc)
+    assert bool(cert.all())
+    np.testing.assert_array_equal(idx.numpy(), brute(q, vecs, w, 10)[1])
+
+
+def test_bad_inputs_and_no_launch_on_cpu(problem):
+    vecs, w, q = problem
+    _, tstore = _stores(vecs, w, "bf16")
+    with pytest.raises(ValueError):
+        tcs.search(tstore, t(q), k=5, scan="xla_high")  # needs an fp32 store
+    with pytest.raises(ValueError):
+        tcs.search(tstore, t(q), k=5, scan="int8")  # needs an int8 store
+    with pytest.raises(ValueError):
+        tcs.search(tstore, t(q), k=5, scan="bogus")
+    with pytest.raises(ValueError):
+        tcs.chunk_maxima(t(q), quantize_rows(t(vecs[:1024]))[0])  # no scales
+    with pytest.raises(ValueError):
+        tcs.gather_rescore(t(q), t(vecs[:1000]), torch.zeros((8, 2), dtype=torch.int32))
+    assert tcs.chunk_maxima.launches == tcs.chunk_maxima.launches_int8 == 0
+    assert tcs.gather_rescore.launches == 0

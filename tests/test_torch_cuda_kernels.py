@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernels against their plain versions, on a card.
+"""The hand-written CUDA kernels (K1-K5) against their plain versions, on
+a card.
 
 These tests need an NVIDIA GPU and nvcc; they carry the ``gpu`` marker
 and skip elsewhere. The file imports neither JAX nor the JAX package, so
@@ -6,17 +7,30 @@ it also runs where JAX is absent:
 
     python -m pytest tests/test_torch_cuda_kernels.py -m gpu --noconftest -q
 
-Tolerance 5e-5: the kernel sums D products sequentially in fp32 (fmaf),
-the plain version in cuBLAS's order; for unit vectors at D = 768 the
-worst-case difference of two fp32 sums is below that.
+Tolerance 5e-5: the kernels sum D products sequentially in fp32 (fmaf),
+the plain versions in cuBLAS's order; for unit vectors at D = 768 the
+worst-case difference of two fp32 sums is below that. Order statistics
+(a slot's candidates and bound, a chunk's maximum) move by no more than
+the scores they are taken from, so they share the tolerance.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from rag_icd10_tpu_torch.ops import chunk_stream
 from rag_icd10_tpu_torch.ops.flat_topk import weighted_scores_reference
-from rag_icd10_tpu_torch.ops.fused_score import fused_search, fused_weighted_scores
+from rag_icd10_tpu_torch.ops.fused_score import (
+    fused_search,
+    fused_weighted_scores,
+    slot_depth,
+    streaming_candidates,
+    streaming_candidates_reference,
+    streaming_topk,
+)
+from rag_icd10_tpu_torch.ops.quantized import quantize_rows
+
+TOL = 5e-5
 
 
 @pytest.fixture()
@@ -82,3 +96,140 @@ def test_fused_score_rejects_bad_inputs(cuda):
         fused_weighted_scores(q, c.t().contiguous().t(), w, m)
     with pytest.raises(ValueError):
         fused_weighted_scores(q.cpu(), c, w, m)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,d", SHAPES)
+@pytest.mark.parametrize("corpus_dtype,exact", MODES)
+@pytest.mark.parametrize("k,slots", [(1, 128), (10, 256), (100, 128)])
+def test_slot_stream_matches_plain(cuda, b, n, d, corpus_dtype, exact, k, slots):
+    q, c, w, m = _problem(b, n, d, seed=b + k, dev=cuda)
+    c = c.to(corpus_dtype)
+    S = slot_depth(k)
+    before = streaming_candidates.launches
+    vals, ids, bounds = streaming_candidates(q, c, w, m, S, slots, exact=exact)
+    torch.cuda.synchronize()
+    assert streaming_candidates.launches == before + 1
+    pv, _, pb = streaming_candidates_reference(q, c, w, m, S, slots, exact=exact)
+    assert vals.shape == pv.shape == (b, slots * S) and bounds.shape == (b, slots)
+    # each slot's sorted candidates and its bound are order statistics
+    torch.testing.assert_close(vals, pv, atol=TOL, rtol=0)
+    torch.testing.assert_close(bounds, pb, atol=TOL, rtol=0)
+    # every candidate id is a row of its slot and scores its value
+    scores = weighted_scores_reference(q, c, w, m, exact=exact)
+    real = ids >= 0
+    slot_of_col = torch.arange(slots * S, device=cuda) % slots
+    assert bool((ids[real].long() % slots == slot_of_col.expand_as(ids)[real]).all())
+    picked = torch.gather(scores, 1, ids.clamp(min=0).long())
+    assert (picked[real] - vals[real]).abs().max().item() <= TOL
+    # the contract: no row outside the candidates beats its slot's bound
+    outside = torch.ones((b, n + 1), dtype=torch.bool, device=cuda)
+    outside.scatter_(1, torch.where(real, ids, n).long(), False)
+    outside = outside[:, :n]
+    row_bound = bounds[:, torch.arange(n, device=cuda) % slots]
+    assert bool((scores[outside] <= row_bound[outside] + TOL).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 10, 100])
+def test_streaming_topk_is_exact(cuda, k):
+    q, c, w, m = _problem(64, 40960, 768, seed=k, dev=cuda)
+    vals, idx, certified = streaming_topk(q, c, w, m, k)
+    want = weighted_scores_reference(q, c, w, m)
+    wvals, _ = torch.topk(want, k, dim=1)
+    torch.testing.assert_close(vals, wvals, atol=TOL, rtol=0)
+    picked = torch.gather(want, 1, idx.long())
+    torch.testing.assert_close(picked, vals, atol=TOL, rtol=0)
+    assert certified.dtype == torch.bool and tuple(certified.shape) == (64,)
+
+
+@pytest.mark.gpu
+def test_slot_collision_decertifies_and_stays_exact(cuda):
+    q, c, w, m = _problem(8, 4096, 128, seed=5, dev=cuda)
+    t = q[0] / q[0].norm()
+    slots, k = 128, 16
+    for rank in range(8):  # 8 > slot_depth(16) = 5 top rows in slot 3
+        c[3 + slots * rank] = t * (10.0 - rank)
+    q[:] = t
+    m.zero_()
+    before = streaming_topk.redos
+    vals, idx, certified = streaming_topk(q, c, w, m, k, slots=slots)
+    assert not bool(certified.all()) and streaming_topk.redos == before + 1
+    wvals, _ = torch.topk(weighted_scores_reference(q, c, w, m), k, dim=1)
+    torch.testing.assert_close(vals, wvals, atol=TOL, rtol=0)
+
+
+def _chunk_problem(b, n, d, seed, dev):
+    q, c, w, _ = _problem(b, n, d, seed, dev)
+    return q, c * w[:, None]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,d", [(3, 1024, 80), (8, 4096, 768), (40, 2560, 128), (130, 3072, 768)])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+def test_chunk_max_matches_plain(cuda, b, n, d, dtype):
+    q, f = _chunk_problem(b, n, d, seed=b, dev=cuda)
+    scales = None
+    if dtype == "bf16":
+        f = f.to(torch.bfloat16)
+    elif dtype == "int8":
+        f, scales = quantize_rows(f)
+    counter = "launches_int8" if dtype == "int8" else "launches"
+    before = getattr(chunk_stream.chunk_maxima, counter)
+    got = chunk_stream.chunk_maxima(q, f, scales)
+    torch.cuda.synchronize()
+    assert getattr(chunk_stream.chunk_maxima, counter) == before + 1
+    want = chunk_stream.chunk_maxima_reference(q, f, scales)
+    assert got.shape == (b, n // 128)
+    torch.testing.assert_close(got, want, atol=TOL, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,nc,d,mc", [(3, 8, 72, 5), (8, 320, 768, 26), (130, 24, 768, 20)])
+def test_gather_rescore_matches_plain(cuda, b, nc, d, mc):
+    q, c, _, _ = _problem(b, nc * 128, d, seed=mc, dev=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(b)
+    ids = torch.randint(0, nc, (b, mc), device=cuda, dtype=torch.int32, generator=gen)
+    before = chunk_stream.gather_rescore.launches
+    got = chunk_stream.gather_rescore(q, c, ids)
+    torch.cuda.synchronize()
+    assert chunk_stream.gather_rescore.launches == before + 1
+    want = chunk_stream.gather_rescore_reference(q, c, ids)
+    torch.testing.assert_close(got, want, atol=TOL, rtol=0)
+
+
+@pytest.mark.gpu
+def test_chunk_stream_search_exact_on_card(cuda):
+    _, c, w, _ = _problem(16, 40000, 768, seed=3, dev=cuda)
+    q = c[:16] + 0.01
+    q = q / q.norm(dim=1, keepdim=True)
+    for scan_dtype in ("fp32", "bf16", "int8"):
+        store = chunk_stream.build_device(c, w, scan_dtype=scan_dtype)
+        vals, idx, _ = chunk_stream.search(store, q, k=10, guarantee=True)
+        want = weighted_scores_reference(q, store.corpus, store.weights, store.mask)
+        wvals, _ = torch.topk(want, 10, dim=1)
+        torch.testing.assert_close(vals, wvals, atol=TOL, rtol=0)
+        assert int(idx.max()) < 40000
+
+
+@pytest.mark.gpu
+def test_k2_to_k5_reject_bad_inputs(cuda):
+    q, c, w, m = _problem(4, 1024, 64, seed=1, dev=cuda)
+    with pytest.raises(ValueError):
+        streaming_candidates(q, c, w, m, S=4, slots=100)
+    with pytest.raises(ValueError):
+        streaming_candidates(q, c, w, m, S=17, slots=128)
+    with pytest.raises(ValueError):
+        streaming_candidates(q.cpu(), c, w, m, S=4, slots=128)
+    with pytest.raises(ValueError):
+        chunk_stream.chunk_maxima(q, quantize_rows(c)[0])  # int8 without scales
+    with pytest.raises(ValueError):
+        chunk_stream.chunk_maxima(q, c[:1000])  # not whole chunks
+    with pytest.raises(TypeError):
+        chunk_stream.gather_rescore(q, c.bfloat16(), torch.zeros((4, 2), dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):
+        chunk_stream.gather_rescore(q, c, torch.zeros((3, 2), dtype=torch.int32, device=cuda))
+    # an id outside the corpus scores NaN instead of reading out of bounds
+    bad = torch.tensor([[0, 8]] * 4, dtype=torch.int32, device=cuda)
+    out = chunk_stream.gather_rescore(q, c, bad)
+    assert bool(torch.isnan(out[:, 128:]).all()) and bool(torch.isfinite(out[:, :128]).all())

@@ -24,6 +24,8 @@ from rag_icd10_tpu.ops.pallas_score import fused_weighted_scores as fused_jax
 from rag_icd10_tpu_torch.ops import flat_topk
 from rag_icd10_tpu_torch.ops.fused_score import fused_search, fused_weighted_scores
 
+torch.set_num_threads(2)  # the suite runs several test processes at once
+
 
 def make_problem(b=8, n=4096, d=128, seed=0, n_real=None):
     rng = np.random.default_rng(seed)
@@ -142,8 +144,8 @@ def test_no_launch_on_cpu():
 def test_unported_and_bad_inputs_raise():
     q, c, w = make_problem(b=8, n=1024, d=64)
     cp, wp, m = flat_topk.pad_corpus(c, w)
-    with pytest.raises(ValueError, match="not yet ported"):
-        fused_search(t(q), t(cp), t(wp), t(m), k=5, method="streaming")
+    with pytest.raises(ValueError, match="use exact, approx or streaming"):
+        fused_search(t(q), t(cp), t(wp), t(m), k=5, method="bogus")
     with pytest.raises(ValueError):
         fused_weighted_scores(t(q[:, :32]), t(cp), t(wp), t(m))
     with pytest.raises(ValueError):

@@ -8,7 +8,8 @@ the JAX package's, on the CPU.
   ties) and scores within 1e-4 at float32 encoder dtype (fp32 forwards
   and scans; the 1e-4 covers the rescoring stack's sums over them).
 - The port's APIServer answers /query and /health through aiohttp's
-  TestClient.
+  TestClient; /query with ``search_method`` "streaming" or "chunkstream"
+  gives the candidates of "exact", and an unported method gives 400.
 - The four tests/golden/*.json API fixtures reproduce through the port's
   store with the deterministic MockEncoder, built as tests/test_api.py
   builds the JAX engine.
@@ -21,6 +22,7 @@ from pathlib import Path
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from aiohttp.test_utils import TestClient, TestServer
 
 import test_api
@@ -46,6 +48,8 @@ from rag_icd10_tpu_torch.pipeline.ner import MedicalNERService
 from rag_icd10_tpu_torch.pipeline.orchestrator import MultiDiagnosisService
 from rag_icd10_tpu_torch.pipeline.textproc import DiagnosisTextProcessor
 from rag_icd10_tpu_torch.runtime import Engine
+
+torch.set_num_threads(2)  # the suite runs several test processes at once
 
 TEXTS = [
     "急性胃肠炎",
@@ -93,7 +97,8 @@ def deployment(tmp_path_factory):
 
 
 def _configs(db, enc_kwargs):
-    api = dict(max_batch=4, warmup_methods="exact,fast")
+    # the port warms the methods it serves and skips "fast" (not ported)
+    api = dict(max_batch=4, warmup_methods="exact,fast,streaming,chunkstream")
     jcfg = jconfig.Config(
         encoder=jconfig.EncoderConfig(**enc_kwargs),
         store=jconfig.StoreConfig(db_path=db),
@@ -121,8 +126,25 @@ def test_engine_matches_jax_engine(engines):
     jeng, teng = engines
     # the sidecar paired both encoders with the same weights and vocab
     assert teng.encoder.config.weights_path == jeng.encoder.config.weights_path
-    want = jeng.matcher.match_many_texts(TEXTS, top_k=5)
-    got = teng.matcher.match_many_texts(TEXTS, top_k=5)
+    _assert_same_matches(
+        teng.matcher.match_many_texts(TEXTS, top_k=5),
+        jeng.matcher.match_many_texts(TEXTS, top_k=5),
+    )
+
+
+@pytest.mark.parametrize("method", ["streaming", "chunkstream"])
+def test_engine_certified_methods_match_jax_engine(engines, method):
+    """The certified methods through the whole pipeline give the JAX
+    Engine's results for the same method (off the TPU the JAX store
+    serves them by its exact scan and its XLA chunk-select engine)."""
+    jeng, teng = engines
+    _assert_same_matches(
+        teng.matcher.match_many_texts(TEXTS, top_k=5, search_method=method),
+        jeng.matcher.match_many_texts(TEXTS, top_k=5, search_method=method),
+    )
+
+
+def _assert_same_matches(got, want):
     for g, w in zip(got, want):
         assert g["extracted_diagnoses"] == w["extracted_diagnoses"]
         assert len(g["matches"]) == len(w["matches"]) >= 1
@@ -188,9 +210,25 @@ def test_api_server_answers_query_and_health(deployment):
             assert status == 200, body
             assert 1 <= len(body["candidates"]) <= top_k
             assert all(np.isfinite(c["score"]) for c in body["candidates"])
+        for text in TEXTS:
+            _, want = _request(
+                loop, tc, "post", "/query",
+                {"text": text, "top_k": 10, "search_method": "exact"},
+            )
+            for method in ("streaming", "chunkstream"):
+                status, body = _request(
+                    loop, tc, "post", "/query",
+                    {"text": text, "top_k": 10, "search_method": method},
+                )
+                assert status == 200, body
+                got, exp = body["candidates"], want["candidates"]
+                assert [c["code"] for c in got] == [c["code"] for c in exp], method
+                np.testing.assert_allclose(
+                    [c["score"] for c in got], [c["score"] for c in exp], atol=1e-5
+                )
         status, body = _request(
             loop, tc, "post", "/query",
-            {"text": "急性胃肠炎", "search_method": "streaming"},
+            {"text": "急性胃肠炎", "search_method": "fast"},
         )
         assert status == 400 and "not yet ported" in body["detail"]
     finally:

@@ -6,6 +6,10 @@ Hits must name the same codes up to ties, with scores within 1e-5 (IEEE
 fp32 on both sides; sums over D=128 in different orders). A store saved
 by either package must load in the other. Methods the port does not
 serve yet must raise instead of silently serving another method.
+
+The certified methods ("streaming", "chunkstream") must give the exact
+method's hits: off the TPU the JAX store serves "streaming" by its exact
+scan and "chunkstream" by its XLA engines, so the JAX side is exact too.
 """
 
 import numpy as np
@@ -17,15 +21,18 @@ from rag_icd10_tpu.data.corpus import synthetic_corpus as jsynthetic
 from rag_icd10_tpu.index.vector_store import VectorStore as JStore
 from rag_icd10_tpu_torch.config import StoreConfig
 from rag_icd10_tpu_torch.data.corpus import synthetic_corpus
-from rag_icd10_tpu_torch.index.vector_store import VectorStore
+from rag_icd10_tpu_torch.index.vector_store import CHUNKSTREAM_SCANS, VectorStore
+from rag_icd10_tpu_torch.ops.fused_score import slot_count
+
+torch.set_num_threads(2)  # the suite runs several test processes at once
 
 DIM = 128
 N = 600
 
 
-def _vectors(n, seed):
+def _vectors(n, seed, dim=DIM):
     rng = np.random.default_rng(seed)
-    v = rng.standard_normal((n, DIM)).astype(np.float32)
+    v = rng.standard_normal((n, dim)).astype(np.float32)
     return v / np.linalg.norm(v, axis=1, keepdims=True)
 
 
@@ -58,7 +65,7 @@ def _assert_same_hits(got, want):
                 assert abs(h.score - kth) <= 1e-5, h.code
 
 
-@pytest.mark.parametrize("method", ["exact", "approx"])
+@pytest.mark.parametrize("method", ["exact", "approx", "streaming", "chunkstream"])
 @pytest.mark.parametrize("top_k", [1, 5, 50])
 def test_search_matches_jax_store(stores, method, top_k):
     jstore, tstore = stores
@@ -120,9 +127,7 @@ def test_store_saved_by_one_package_loads_in_the_other(stores, tmp_path, writer)
     _assert_same_hits(reader.search(q, 5), original.search(q, 5))
 
 
-@pytest.mark.parametrize(
-    "method", ["fast", "streaming", "chunkstream", "sketch", "hnsw"]
-)
+@pytest.mark.parametrize("method", ["fast", "sketch", "hnsw"])
 def test_unported_methods_raise(stores, method):
     _, tstore = stores
     with pytest.raises(ValueError, match="not yet ported"):
@@ -166,3 +171,107 @@ def test_cuda_without_card_raises():
         pytest.skip("a card is present: cuda is a valid device here")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         VectorStore(dim=DIM)
+
+
+# ----------------------------------------------- certified methods, served
+
+N_CS, DIM_CS = 4000, 64  # 32 chunks of 128 rows: mc = 21 < 32 at top_k 5
+
+
+def _cs_stores(scan="pallas", n=N_CS, seed=2):
+    vecs = _vectors(n, seed, DIM_CS)
+    jstore = JStore(dim=DIM_CS, config=JStoreConfig(pad_multiple=128, chunkstream_scan=scan))
+    jstore.insert_records(list(jsynthetic(n, seed=seed).records()), vecs)
+    tstore = VectorStore(
+        dim=DIM_CS, config=StoreConfig(pad_multiple=128, chunkstream_scan=scan), device="cpu"
+    )
+    tstore.insert_records(list(synthetic_corpus(n, seed=seed).records()), vecs)
+    return jstore, tstore, vecs
+
+
+@pytest.mark.parametrize("scan", list(CHUNKSTREAM_SCANS))
+def test_chunkstream_scan_knob_matches_jax_and_exact(scan):
+    """Every CHUNKSTREAM_SCAN value serves the exact top-k, as
+    tests/test_chunkstream_served.py pins for the JAX store, and keeps its
+    stored scan dtype on the CPU."""
+    jstore, tstore, vecs = _cs_stores(scan)
+    q = vecs[10:14] + 0.01
+    got = tstore.search(q, 5, method="chunkstream")
+    _assert_same_hits(got, jstore.search(q, 5, method="chunkstream"))
+    exact = tstore.search(q, 5, method="exact")
+    assert [[h.id for h in r] for r in got] == [[h.id for h in r] for r in exact]
+    _, dtype = CHUNKSTREAM_SCANS[scan]
+    assert tstore._chunkstore.scan_dtype == jstore._chunkstore.scan_dtype == dtype
+    assert (tstore._chunkstore.resid_max > 0.0) == (dtype != "fp32")
+    stats = tstore.get_collection_stats()["certificate"]
+    assert stats["queries"] == 4 and stats["certified"] == 4 and stats["redos"] == 0
+
+
+def test_streaming_matches_jax_and_exact():
+    jstore, tstore, vecs = _cs_stores()
+    q = vecs[20:28] + 0.01
+    for top_k in (5, 20):
+        got = tstore.search(q, top_k, method="streaming")
+        _assert_same_hits(got, jstore.search(q, top_k, method="streaming"))
+        _assert_same_hits(got, tstore.search(q, top_k, method="exact"))
+
+
+def test_chunkstream_requires_fp32_residency():
+    store = VectorStore(dim=DIM, config=StoreConfig(device_dtype="bfloat16"), device="cpu")
+    store.insert_records(list(synthetic_corpus(40).records()), _vectors(40, 1))
+    with pytest.raises(ValueError, match="fp32 device residency"):
+        store.search(_vectors(2, 0), 5, method="chunkstream")
+    assert len(store.search(_vectors(2, 0), 5, method="streaming")[0]) == 5
+    bad = VectorStore(dim=DIM, config=StoreConfig(chunkstream_scan="bogus"), device="cpu")
+    bad.insert_records(list(synthetic_corpus(40).records()), _vectors(40, 1))
+    with pytest.raises(ValueError, match="CHUNKSTREAM_SCAN"):
+        bad.search(_vectors(2, 0), 5, method="chunkstream")
+
+
+def test_chunkstore_rebuilt_after_append_and_release():
+    _, tstore, vecs = _cs_stores("pallas_int8", n=1000)
+    tstore.search(vecs[:2], 5, method="chunkstream")
+    built = tstore._chunkstore
+    assert built is not None and built.n_real == 1000
+    usage = tstore.get_memory_usage()["chunkstore_device_bytes"]
+    assert usage >= built.folded.numel() + built.scales.numel() * 4
+    new = _vectors(300, 9, DIM_CS)
+    records = list(synthetic_corpus(1300, seed=2).records())[1000:]
+    tstore.insert_records(records, new)
+    assert tstore._chunkstore is None  # covered only the old rows
+    hits = tstore.search(new[:3], 1, method="chunkstream")
+    assert [r[0].id for r in hits] == [1000, 1001, 1002]
+    assert tstore._chunkstore.n_real == 1300
+    tstore.release_collection()
+    assert tstore._chunkstore is None
+    assert tstore.get_memory_usage()["chunkstore_device_bytes"] == 0
+
+
+def test_uncertified_batch_redone_in_finalize():
+    """Streaming: 8 of the top-16 in one slot of the port's layout, more
+    than its depth S = 5. Chunkstream: the other 8 tie across 40 chunks,
+    more than the 32 it fetches, so its bound (32nd chunk max + eps)
+    exceeds the 16th value. Both de-certify, and finalize redoes the
+    batch on the exact path."""
+    n, k = 6000, 16
+    _, tstore, vecs = _cs_stores(n=n)
+    target = vecs[0].copy()
+    w = tstore.corpus.level_weights(tstore.config.level_weights)
+    tstore.load_collection()
+    slots = slot_count(1, tstore._dev["corpus"].shape[0], k)
+    for rank in range(8):  # one streaming slot, weighted scores 10 .. 3
+        row = 3 + slots * rank
+        tstore._vectors[row] = target * (10.0 - rank) / w[row]
+    for i in range(40):  # one row scoring 2.0 in each of 40 chunks
+        row = 128 * i + 5
+        tstore._vectors[row] = target * 2.0 / w[row]
+    tstore.release_collection()
+    q = target[None, :]
+    exact = tstore.search(q, k, method="exact")
+    for method in ("streaming", "chunkstream"):
+        before = dict(tstore.get_collection_stats()["certificate"])
+        got = tstore.search(q, k, method=method)
+        after = tstore.get_collection_stats()["certificate"]
+        assert after["redos"] == before["redos"] + 1, method
+        assert after["certified"] == before["certified"], method
+        _assert_same_hits(got, exact)
