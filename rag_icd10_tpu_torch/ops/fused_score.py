@@ -8,10 +8,10 @@ Python re-weighting loop (reference: services/milvus_service.py:271-316).
 
 - ``fused_weighted_scores`` (K1, ``csrc/fused_score.cu``) writes the
   (B, N) scores; ``fused_search`` takes ``torch.topk`` of them.
-- ``streaming_candidates`` (K2, ``csrc/slot_stream.cu``) keeps a running
-  top-S per slot instead, so the (B, N) scores never reach device memory;
-  ``streaming_topk`` selects the top-k from its candidates and certifies
-  it against the slots' bounds.
+- ``streaming_candidates`` (K2, ``csrc/slot_stream.cu``) keeps the top-S
+  of each contiguous row range instead, so the (B, N) scores never reach
+  device memory; ``streaming_topk`` selects the top-k from its candidates
+  and certifies it against the ranges' bounds.
 
 On a CUDA tensor each wrapper launches its hand-written kernel (the
 source notes give bound and design) or raises; on a CPU tensor it
@@ -40,6 +40,9 @@ _launch_lock = threading.Lock()
 STREAMING_K_MAX = 128
 #: blocks the streaming kernel aims for: two waves on an H100's 132 SMs
 _STREAM_BLOCKS = 264
+#: largest batch the streaming kernel scores 8 queries per block; above
+#: it, 32 (``stream_tile_rows``)
+_STREAM_WIDE_B = 16
 
 
 def _check_cuda_inputs(queries, corpus, weights, mask):
@@ -161,38 +164,53 @@ fused_search.streaming_over_k_max = 0
 # ---------------------------------------------------------------------------
 # Streaming top-k (K2). The contract is the JAX package's: a candidate set
 # plus a sound bound on every corpus row outside it. The slot layout is the
-# port's own: P slots (a multiple of 128, chosen by ``slot_count``), slot p
-# holding rows p, p + P, p + 2P, ... The 128 lane slots of the TPU kernel
-# are one case of it (P = 128).
+# port's own: G slots (``slot_count``), slot g holding the contiguous row
+# range [g*R, min((g+1)*R, N)) with R = ``range_rows(N, G)``, a whole number
+# of 128-row tiles. At the default depth S = k each range keeps its own
+# top-k, so the certificate holds by construction (``streaming_topk``).
 # ---------------------------------------------------------------------------
 
 
 def slot_depth(k: int) -> int:
-    """Slot-state depth S for a target top-k, the JAX package's values: a
-    certificate failure needs S+1 of the global top-k in one slot; the
-    cap bounds the kernel's state (shared memory), correctness never
-    depends on S."""
+    """The JAX package's slot-state depth for its 128 interleaved lane
+    slots. Kept for parity; the port's ranges default to depth k, and a
+    shallower depth (``streaming_topk(depth=...)``) can decertify."""
     return min(16, max(4, -(-k // 5) + 1))
 
 
+def stream_tile_rows(batch: int) -> int:
+    """Queries per block of the streaming kernel: 8 up to
+    ``_STREAM_WIDE_B`` queries, 32 above, so that a large batch reads the
+    corpus ceil(B/32) times instead of ceil(B/8)."""
+    return 8 if batch <= _STREAM_WIDE_B else 32
+
+
 def slot_count(batch: int, n: int, k: int) -> int:
-    """Slot count P for the streaming kernel: a multiple of 128, doubled
-    while the kernel's blocks (8 queries x 128 slots each) stay within
-    two waves on the card and the P*S candidates stay within half of N.
-    More slots only make a certificate failure rarer; at P = 128 the
-    failure odds are the TPU kernel's."""
-    s = slot_depth(k)
-    m_tiles = -(-batch // 8)
-    p = 128
-    while m_tiles * (2 * p // 128) <= _STREAM_BLOCKS and 2 * p * s <= n // 2:
-        p *= 2
-    return p
+    """Range count G for the streaming kernel. With tiles = ceil(n/128)
+    and m_tiles = ceil(batch / stream_tile_rows(batch)), t tiles per range
+    is the largest t with m_tiles * ceil(tiles/t) >= _STREAM_BLOCKS (two
+    waves on an H100's 132 SMs), raised until the ceil(tiles/t) * k
+    candidates stay within a quarter of n; G = ceil(tiles/t)."""
+    tiles = max(1, -(-n // 128))
+    m_tiles = -(-batch // stream_tile_rows(batch))
+    need = -(-_STREAM_BLOCKS // m_tiles)  # ranges for two waves
+    t = tiles if need <= 1 else max(1, (tiles - 1) // (need - 1))
+    most = n // (4 * k)  # ranges whose k candidates fit in n/4
+    t = tiles if most == 0 else max(t, -(-tiles // most))
+    return -(-tiles // t)
+
+
+def range_rows(n: int, slots: int) -> int:
+    """Rows R of each of ``slots`` ranges over n rows: the fewest whole
+    128-row tiles that cover n. Ranges past the corpus are empty."""
+    tiles = max(1, -(-n // 128))
+    return 128 * -(-tiles // slots)
 
 
 @functools.cache
 def _slot_kernel():
     fn = cuda_build.load("slot_stream").slot_stream_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -206,20 +224,24 @@ def streaming_candidates_reference(
     slots: int,
     exact: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of ``streaming_candidates``: the (B, N) scores, then
-    each slot's top S+1 by ``torch.topk``. Candidates are rank-major
-    (column ``rank * slots + p``); an empty candidate is (-inf, -1)."""
+    """Plain version of ``streaming_candidates``: the (B, N) scores padded
+    with -inf to slots * R, viewed (B, slots, R), and each range's top S+1
+    by ``torch.topk``. Candidates are range-major (column ``g * S +
+    rank``); an empty candidate is (-inf, -1)."""
     scores = weighted_scores_reference(queries, corpus, weights, mask, exact=exact)
     b, n = scores.shape
-    steps = max(-(-n // slots), S + 1)
-    pad = scores.new_full((b, steps * slots - n), float("-inf"))
-    s3 = torch.cat([scores, pad], dim=1).view(b, steps, slots)
-    vals, step = torch.topk(s3, S + 1, dim=1)  # (B, S+1, P), descending
-    cand_vals = vals[:, :S].reshape(b, S * slots)
-    slot = torch.arange(slots, device=scores.device)
-    ids = (step[:, :S] * slots + slot).reshape(b, S * slots).to(torch.int32)
+    r = range_rows(n, slots)
+    s2 = scores.new_full((b, slots * r), float("-inf"))
+    s2[:, :n] = scores
+    s3 = s2.view(b, slots, r)
+    if r <= S:  # topk needs S+1 entries per range
+        s3 = torch.cat([s3, s3.new_full((b, slots, S + 1 - r), float("-inf"))], dim=2)
+    vals, pos = torch.topk(s3, S + 1, dim=2)  # (B, slots, S+1), descending
+    cand_vals = vals[:, :, :S].reshape(b, slots * S)
+    start = torch.arange(slots, device=scores.device)[:, None] * r
+    ids = (pos[:, :, :S] + start).reshape(b, slots * S).to(torch.int32)
     ids = torch.where(torch.isneginf(cand_vals), torch.full_like(ids, -1), ids)
-    return cand_vals, ids, vals[:, S].contiguous()
+    return cand_vals, ids, vals[:, :, S].contiguous()
 
 
 def streaming_candidates(
@@ -231,13 +253,15 @@ def streaming_candidates(
     slots: int,
     exact: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Running top-S candidates per slot over the whole corpus.
+    """Top-S candidates of each of ``slots`` contiguous row ranges.
 
     Returns (cand_vals (B, slots*S) fp32, cand_ids (B, slots*S) int32,
-    bounds (B, slots) fp32): every corpus row NOT among the candidates
-    has weighted score <= the bound of its slot (row % slots). Modes as
-    ``fused_weighted_scores``. ``streaming_candidates.launches`` counts
-    kernel launches."""
+    bounds (B, slots) fp32). Range g holds rows [g*R, (g+1)*R) with
+    R = ``range_rows(N, slots)``; its S best scores, descending, sit at
+    columns g*S .. g*S + S-1, and every row of it NOT among them scores
+    <= bounds[:, g] (-inf when the range has at most S rows). 1 <= S <=
+    128. Modes as ``fused_weighted_scores``.
+    ``streaming_candidates.launches`` counts kernel launches."""
     b, d = queries.shape
     n, d2 = corpus.shape
     if d != d2:
@@ -247,8 +271,8 @@ def streaming_candidates(
             f"weights {tuple(weights.shape)} and mask {tuple(mask.shape)} "
             f"must both be ({n},)"
         )
-    if slots <= 0 or slots % 128 or not 1 <= S <= 16:
-        raise ValueError(f"slots={slots} (a multiple of 128), S={S} (1..16)")
+    if slots <= 0 or not 1 <= S <= STREAMING_K_MAX:
+        raise ValueError(f"slots={slots} (>= 1), S={S} (1..{STREAMING_K_MAX})")
     if corpus.device.type == "cpu":
         return streaming_candidates_reference(
             queries, corpus, weights, mask, S, slots, exact=exact
@@ -265,7 +289,8 @@ def streaming_candidates(
         err = _slot_kernel()(
             q.data_ptr(), corpus.data_ptr(), w.data_ptr(), m.data_ptr(),
             cand_vals.data_ptr(), cand_ids.data_ptr(), bounds.data_ptr(),
-            b, n, d, slots, S, int(bf16), int(bf16 or not exact),
+            b, n, d, slots, range_rows(n, slots), S, stream_tile_rows(b),
+            int(bf16), int(bf16 or not exact),
             torch.cuda.current_stream().cuda_stream,
         )
     if err:
@@ -287,14 +312,17 @@ def streaming_topk(
     exact: bool = True,
     guarantee: bool = True,
     slots: int = 0,
+    depth: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(B, D) x (N, D) -> level-weighted (values (B, k), indices (B, k)
     int32, certified (B,) bool) without (B, N) scores in device memory.
     k must be <= 128.
 
-    Slot candidates (K2) + ONE ``torch.topk`` over (B, slots*S). A query
-    is certified when its k-th value is >= the largest slot bound: no
-    unfetched row can beat it, so at most ties were missed.
+    Range candidates (K2) + ONE ``torch.topk`` over (B, slots*S). A query
+    is certified when its k-th value is >= the largest range bound: no
+    unfetched row can beat it, so at most ties were missed. At the
+    default depth S = k this always holds: a range whose (k+1)-th score
+    beat the k-th value would hold k+1 rows above it.
 
     ``guarantee=True`` returns the exact top-k in every case: it reads the
     certificate with one host sync and, if any query failed, redoes the
@@ -302,13 +330,16 @@ def streaming_topk(
     ``streaming_topk.redos``). ``lax.cond`` of the JAX package has no
     sync-free counterpart in eager PyTorch. ``guarantee=False`` does not
     sync and leaves the check to the caller (the store's ``finalize``).
-    ``slots=0`` picks the slot count with ``slot_count``."""
+    ``slots=0`` picks the range count with ``slot_count``; ``depth=0``
+    keeps S = k candidates per range."""
     b = queries.shape[0]
     n = corpus.shape[0]
     if not 1 <= k <= STREAMING_K_MAX:
         raise ValueError(f"streaming_topk k={k}: 1 <= k <= {STREAMING_K_MAX}")
-    S = slot_depth(k)
+    S = depth or k
     slots = slots or slot_count(b, n, k)
+    if slots * S < k:
+        raise ValueError(f"{slots} ranges of depth {S} hold fewer than k={k} candidates")
     cand_vals, cand_ids, bounds = streaming_candidates(
         queries, corpus, weights, mask, S, slots, exact=exact
     )

@@ -10,7 +10,7 @@ it also runs where JAX is absent:
 Tolerance 5e-5: the kernels sum D products sequentially in fp32 (fmaf),
 the plain versions in cuBLAS's order; for unit vectors at D = 768 the
 worst-case difference of two fp32 sums is below that. Order statistics
-(a slot's candidates and bound, a chunk's maximum) move by no more than
+(a range's candidates and bound, a chunk's maximum) move by no more than
 the scores they are taken from, so they share the tolerance.
 """
 
@@ -23,6 +23,8 @@ from rag_icd10_tpu_torch.ops.flat_topk import weighted_scores_reference
 from rag_icd10_tpu_torch.ops.fused_score import (
     fused_search,
     fused_weighted_scores,
+    range_rows,
+    slot_count,
     slot_depth,
     streaming_candidates,
     streaming_candidates_reference,
@@ -98,36 +100,60 @@ def test_fused_score_rejects_bad_inputs(cuda):
         fused_weighted_scores(q.cpu(), c, w, m)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,n,d", SHAPES)
-@pytest.mark.parametrize("corpus_dtype,exact", MODES)
-@pytest.mark.parametrize("k,slots", [(1, 128), (10, 256), (100, 128)])
-def test_slot_stream_matches_plain(cuda, b, n, d, corpus_dtype, exact, k, slots):
-    q, c, w, m = _problem(b, n, d, seed=b + k, dev=cuda)
-    c = c.to(corpus_dtype)
-    S = slot_depth(k)
+def _check_range_candidates(q, c, w, m, S, slots, exact, dev):
+    """K2 against its plain version, and the range contract row by row."""
+    b, n = q.shape[0], c.shape[0]
     before = streaming_candidates.launches
     vals, ids, bounds = streaming_candidates(q, c, w, m, S, slots, exact=exact)
     torch.cuda.synchronize()
     assert streaming_candidates.launches == before + 1
     pv, _, pb = streaming_candidates_reference(q, c, w, m, S, slots, exact=exact)
     assert vals.shape == pv.shape == (b, slots * S) and bounds.shape == (b, slots)
-    # each slot's sorted candidates and its bound are order statistics
+    # each range's sorted candidates and its bound are order statistics
     torch.testing.assert_close(vals, pv, atol=TOL, rtol=0)
     torch.testing.assert_close(bounds, pb, atol=TOL, rtol=0)
-    # every candidate id is a row of its slot and scores its value
+    # every candidate id is a row of its range and scores its value
+    r = range_rows(n, slots)
     scores = weighted_scores_reference(q, c, w, m, exact=exact)
     real = ids >= 0
-    slot_of_col = torch.arange(slots * S, device=cuda) % slots
-    assert bool((ids[real].long() % slots == slot_of_col.expand_as(ids)[real]).all())
+    range_of_col = torch.arange(slots * S, device=dev) // S
+    assert bool((ids[real].long() // r == range_of_col.expand_as(ids)[real]).all())
     picked = torch.gather(scores, 1, ids.clamp(min=0).long())
     assert (picked[real] - vals[real]).abs().max().item() <= TOL
-    # the contract: no row outside the candidates beats its slot's bound
-    outside = torch.ones((b, n + 1), dtype=torch.bool, device=cuda)
+    # the contract: no row outside the candidates beats its range's bound
+    outside = torch.ones((b, n + 1), dtype=torch.bool, device=dev)
     outside.scatter_(1, torch.where(real, ids, n).long(), False)
     outside = outside[:, :n]
-    row_bound = bounds[:, torch.arange(n, device=cuda) % slots]
+    row_bound = bounds[:, torch.arange(n, device=dev) // r]
     assert bool((scores[outside] <= row_bound[outside] + TOL).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,d", SHAPES)
+@pytest.mark.parametrize("corpus_dtype,exact", MODES)
+@pytest.mark.parametrize("k,slots", [(1, 7), (20, 0), (128, 5)])
+def test_slot_stream_matches_plain(cuda, b, n, d, corpus_dtype, exact, k, slots):
+    """Depth S = k: 1, 20 and 128 (4 list entries per lane). slots=0 takes
+    slot_count's ranges; 7 ranges over 1,000 rows leave 3 empty; B = 3
+    and 8 run 8 queries per block, B = 40 and 130 run 32 (ragged)."""
+    q, c, w, m = _problem(b, n, d, seed=b + k, dev=cuda)
+    c = c.to(corpus_dtype)
+    _check_range_candidates(q, c, w, m, k, slots or slot_count(b, n, k), exact, cuda)
+
+
+@pytest.mark.gpu
+def test_slot_stream_main_shape(cuda):
+    """The main path's shape: B = 2, N = 40,960, D = 768, k = 20 (320
+    ranges of one tile); the top-k certifies and equals the exact one."""
+    q, c, w, m = _problem(2, 40960, 768, seed=20, dev=cuda)
+    slots = slot_count(2, 40960, 20)
+    assert slots == 320
+    _check_range_candidates(q, c, w, m, 20, slots, True, cuda)
+    vals, idx, certified = streaming_topk(q, c, w, m, 20, guarantee=False)
+    want = weighted_scores_reference(q, c, w, m)
+    torch.testing.assert_close(vals, torch.topk(want, 20, dim=1).values, atol=TOL, rtol=0)
+    torch.testing.assert_close(torch.gather(want, 1, idx.long()), vals, atol=TOL, rtol=0)
+    assert bool(certified.all())
 
 
 @pytest.mark.gpu
@@ -141,21 +167,26 @@ def test_streaming_topk_is_exact(cuda, k):
     picked = torch.gather(want, 1, idx.long())
     torch.testing.assert_close(picked, vals, atol=TOL, rtol=0)
     assert certified.dtype == torch.bool and tuple(certified.shape) == (64,)
+    assert bool(certified.all())  # depth k certifies by construction
 
 
 @pytest.mark.gpu
 def test_slot_collision_decertifies_and_stays_exact(cuda):
     q, c, w, m = _problem(8, 4096, 128, seed=5, dev=cuda)
     t = q[0] / q[0].norm()
-    slots, k = 128, 16
-    for rank in range(8):  # 8 > slot_depth(16) = 5 top rows in slot 3
-        c[3 + slots * rank] = t * (10.0 - rank)
+    k = 16
+    for rank in range(8):  # 8 > slot_depth(16) = 5 top rows in one range
+        c[40 + rank] = t * (10.0 - rank)
     q[:] = t
     m.zero_()
     before = streaming_topk.redos
-    vals, idx, certified = streaming_topk(q, c, w, m, k, slots=slots)
+    vals, idx, certified = streaming_topk(q, c, w, m, k, depth=slot_depth(k))
     assert not bool(certified.all()) and streaming_topk.redos == before + 1
     wvals, _ = torch.topk(weighted_scores_reference(q, c, w, m), k, dim=1)
+    torch.testing.assert_close(vals, wvals, atol=TOL, rtol=0)
+    # at the default depth S = k the same data certifies, with no redo
+    vals, idx, certified = streaming_topk(q, c, w, m, k)
+    assert bool(certified.all()) and streaming_topk.redos == before + 1
     torch.testing.assert_close(vals, wvals, atol=TOL, rtol=0)
 
 
@@ -216,11 +247,11 @@ def test_chunk_stream_search_exact_on_card(cuda):
 def test_k2_to_k5_reject_bad_inputs(cuda):
     q, c, w, m = _problem(4, 1024, 64, seed=1, dev=cuda)
     with pytest.raises(ValueError):
-        streaming_candidates(q, c, w, m, S=4, slots=100)
+        streaming_candidates(q, c, w, m, S=4, slots=0)
     with pytest.raises(ValueError):
-        streaming_candidates(q, c, w, m, S=17, slots=128)
+        streaming_candidates(q, c, w, m, S=129, slots=8)
     with pytest.raises(ValueError):
-        streaming_candidates(q.cpu(), c, w, m, S=4, slots=128)
+        streaming_candidates(q.cpu(), c, w, m, S=4, slots=8)
     with pytest.raises(ValueError):
         chunk_stream.chunk_maxima(q, quantize_rows(c)[0])  # int8 without scales
     with pytest.raises(ValueError):

@@ -10,8 +10,10 @@ bf16 corpora take the same tolerance: both sides round q to bf16, and
 the bf16 x bf16 products are exact in fp32, leaving only the sum order.
 Ids are compared as sets up to ties at the k-th value.
 
-The port's slot layout is its own: P slots (``slot_count``), slot p
-holding rows p, p + P, ... The TPU's 128 lane slots are the case P = 128.
+The port's slot layout is its own: G contiguous row ranges
+(``slot_count``, ``range_rows``), each keeping its own top-k by default,
+where the TPU kernel keeps a top-``slot_depth(k)`` per lane slot (row mod
+128).
 """
 
 import jax.numpy as jnp
@@ -24,6 +26,7 @@ from rag_icd10_tpu_torch.ops import fused_score
 from rag_icd10_tpu_torch.ops.flat_topk import weighted_scores_reference
 from rag_icd10_tpu_torch.ops.fused_score import (
     fused_search,
+    range_rows,
     slot_count,
     slot_depth,
     streaming_candidates,
@@ -86,28 +89,47 @@ def _collide(c, q, rows):
     q[:] = target
 
 
-@pytest.mark.parametrize("layout", ["jax", "port"])
-def test_slot_collision_decertifies_and_stays_exact(layout):
-    """More than S of the top-k in one slot: the slot's state provably
-    misses some, so the certificate must fail, and ``guarantee`` must
-    still give the exact top-k. "jax" is tests/test_streaming_topk.py's
-    case (8 rows in one 128-stride lane slot, run with the TPU layout
-    P = 128); "port" builds the collision for the port's default P."""
+@pytest.mark.parametrize("depth", ["slot_depth", "default"])
+def test_slot_collision_decertifies_and_stays_exact(depth):
+    """8 of the top-16 in adjacent rows of one range, as sibling ICD codes
+    lie. At the JAX package's depth slot_depth(16) = 5 the range's state
+    provably misses some, so the certificate must fail and ``guarantee``
+    must still give the exact top-k with one redo. At the default depth
+    S = k the same data certifies with no redo."""
     q, c, w, m = _problem(b=8, n=4096, d=128, seed=99)
     c *= 0.01
     w[:] = 1.0
     k = 16
-    assert slot_depth(k) < 8
-    slots = 128 if layout == "jax" else slot_count(8, 4096, k)
-    _collide(c, q, [3 + slots * i for i in range(8)])
+    S = slot_depth(k) if depth == "slot_depth" else 0
+    assert slot_depth(k) < 8 and range_rows(4096, slot_count(8, 4096, k)) >= 8 + 40
+    _collide(c, q, [40 + i for i in range(8)])
     before = streaming_topk.redos
-    _, _, cert = streaming_topk(t(q), t(c), t(w), t(m), k, guarantee=False, slots=slots)
-    assert not bool(cert.any())
-    vals, idx, cert = streaming_topk(t(q), t(c), t(w), t(m), k, slots=slots)
-    assert not bool(cert.any()) and streaming_topk.redos == before + 1
+    _, _, cert = streaming_topk(t(q), t(c), t(w), t(m), k, guarantee=False, depth=S)
+    assert bool(cert.any()) == (depth == "default")
+    vals, idx, cert = streaming_topk(t(q), t(c), t(w), t(m), k, depth=S)
+    if depth == "default":
+        assert bool(cert.all()) and streaming_topk.redos == before
+    else:
+        assert not bool(cert.any()) and streaming_topk.redos == before + 1
     jvals, jidx = _jax_streaming(q, c, w, m, k)
     scores = (q @ c.T) * w
     _assert_same_topk(vals.numpy(), idx.numpy(), jvals, jidx, scores)
+
+
+def test_jax_lane_collision_certifies():
+    """tests/test_streaming_topk.py's collision (8 top rows 128 apart, all
+    in one of the TPU's lane slots) falls into 8 ranges of the port's
+    layout: it certifies even at the JAX depth, with no redo."""
+    q, c, w, m = _problem(b=8, n=4096, d=128, seed=99)
+    c *= 0.01
+    w[:] = 1.0
+    k = 16
+    _collide(c, q, [3 + 128 * i for i in range(8)])
+    before = streaming_topk.redos
+    vals, idx, cert = streaming_topk(t(q), t(c), t(w), t(m), k, depth=slot_depth(k))
+    assert bool(cert.all()) and streaming_topk.redos == before
+    jvals, jidx = _jax_streaming(q, c, w, m, k)
+    _assert_same_topk(vals.numpy(), idx.numpy(), jvals, jidx, (q @ c.T) * w)
 
 
 def test_padding_mask_respected():
@@ -124,25 +146,36 @@ def test_slot_depth_matches_jax(k):
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
-@pytest.mark.parametrize("S,slots", [(4, 128), (5, 256), (16, 128)])
+@pytest.mark.parametrize("S,slots", [(4, 8), (5, 7), (16, 24), (128, 24)])
 def test_candidate_contract(seed, S, slots):
-    """Every row outside the candidates scores at most its slot's bound,
-    and every candidate is a row of its own slot scoring its value."""
+    """Every candidate is a row of its own range scoring its value, and
+    every row outside the candidates scores at most its range's bound.
+    N = 3000 is ragged (24 tiles, the last of 56 rows); 7 ranges of 4
+    tiles leave the 7th empty; at S = 128 every range is no longer than S,
+    so nothing is evicted and every bound is -inf."""
     q, c, w, m = _problem(b=4, n=3000, d=64, seed=seed)
+    n = c.shape[0]
     vals, ids, bounds = streaming_candidates(t(q), t(c), t(w), t(m), S, slots)
     assert tuple(vals.shape) == (4, slots * S) and tuple(bounds.shape) == (4, slots)
+    r = range_rows(n, slots)
+    assert r % 128 == 0 and slots * r >= n
     scores = (q @ c.T) * w
-    n = c.shape[0]
     for row in range(4):
         got = ids[row].numpy()
         real = got >= 0
-        assert (got[real] % slots == (np.arange(slots * S) % slots)[real]).all()
+        assert (got[real] // r == (np.arange(slots * S) // S)[real]).all()
         np.testing.assert_allclose(
             scores[row, got[real]], vals[row].numpy()[real], atol=TOL, rtol=RTOL
         )
+        v = vals[row].numpy().reshape(slots, S)
+        assert (v[:, :-1] >= v[:, 1:]).all()  # descending within a range
+        for g in range(slots):  # a range keeps min(S, its rows) candidates
+            assert real.reshape(slots, S)[g].sum() == min(S, max(0, min(n, (g + 1) * r) - g * r))
         outside = np.setdiff1d(np.arange(n), got[real])
         slack = TOL + RTOL * np.abs(scores[row, outside])
-        assert (scores[row, outside] <= bounds[row].numpy()[outside % slots] + slack).all()
+        assert (scores[row, outside] <= bounds[row].numpy()[outside // r] + slack).all()
+    if S >= r:
+        assert bool(torch.isneginf(bounds).all())
 
 
 def test_fused_search_streaming_and_large_k():
@@ -161,12 +194,45 @@ def test_fused_search_streaming_and_large_k():
         streaming_topk(t(q), t(c), t(w), t(m), k=200)
 
 
-def test_slot_count_rules():
-    for b, n, k in [(8, 40960, 10), (256, 40960, 10), (8, 1 << 20, 100), (1, 512, 5)]:
-        p = slot_count(b, n, k)
-        assert p % 128 == 0
-        assert p == 128 or p * slot_depth(k) <= n // 2
-        assert -(-b // 8) * p // 128 <= fused_score._STREAM_BLOCKS or p == 128
+@pytest.mark.parametrize(
+    "b,n,k,t,g",
+    [  # the table of the picker: (B, N, k) -> t tiles per range, G ranges
+        (2, 40960, 20, 1, 320),  # the main path's shape
+        (8, 40960, 100, 4, 80),
+        (256, 40960, 10, 9, 36),  # 32 queries per block: 8 x 36 = 288 blocks
+        (8, 1 << 20, 10, 31, 265),
+        (64, 40960, 100, 4, 80),
+        (1, 512, 5, 1, 4),
+        (300, 40960, 128, 12, 27),  # 10 query tiles x 27 = 270 blocks
+    ],
+)
+def test_slot_count_rules(b, n, k, t, g):
+    assert slot_count(b, n, k) == g
+    assert range_rows(n, g) == 128 * t
+    tiles = -(-n // 128)
+    m_tiles = -(-b // fused_score.stream_tile_rows(b))
+    assert fused_score.stream_tile_rows(b) == (8 if b <= 16 else 32)
+    # two waves unless a smaller range was forced by the candidate rule
+    two_waves = m_tiles * g >= fused_score._STREAM_BLOCKS
+    assert two_waves or t == 1 or g * k <= n // 4
+    # the candidates stay within a quarter of the corpus
+    assert g * k <= n // 4 or g == 1
+    # the largest t for two waves: one more tile per range falls short
+    if two_waves and g * k <= n // 4:
+        assert m_tiles * -(-tiles // (t + 1)) < fused_score._STREAM_BLOCKS
+
+
+def test_depth_and_range_arguments_checked():
+    q, c, w, m = _problem(n=1024, seed=5)
+    for S, slots in [(0, 8), (129, 8), (4, 0)]:
+        with pytest.raises(ValueError):
+            streaming_candidates(t(q), t(c), t(w), t(m), S, slots)
+    with pytest.raises(ValueError):  # 2 ranges of depth 4 hold 8 < 10
+        streaming_topk(t(q), t(c), t(w), t(m), 10, slots=2, depth=4)
+    vals, _, cert = streaming_topk(t(q), t(c), t(w), t(m), 10, slots=1)
+    want = -np.sort(-((q @ c.T) * w), axis=1)[:, :10]  # one range is the flat scan
+    np.testing.assert_allclose(vals.numpy(), want, atol=TOL, rtol=RTOL)
+    assert bool(cert.all())
 
 
 def test_no_launch_on_cpu():

@@ -22,7 +22,7 @@ from rag_icd10_tpu.index.vector_store import VectorStore as JStore
 from rag_icd10_tpu_torch.config import StoreConfig
 from rag_icd10_tpu_torch.data.corpus import synthetic_corpus
 from rag_icd10_tpu_torch.index.vector_store import CHUNKSTREAM_SCANS, VectorStore
-from rag_icd10_tpu_torch.ops.fused_score import slot_count
+from rag_icd10_tpu_torch.ops.fused_score import range_rows, slot_count
 
 torch.set_num_threads(2)  # the suite runs several test processes at once
 
@@ -247,31 +247,36 @@ def test_chunkstore_rebuilt_after_append_and_release():
     assert tstore.get_memory_usage()["chunkstore_device_bytes"] == 0
 
 
-def test_uncertified_batch_redone_in_finalize():
-    """Streaming: 8 of the top-16 in one slot of the port's layout, more
-    than its depth S = 5. Chunkstream: the other 8 tie across 40 chunks,
-    more than the 32 it fetches, so its bound (32nd chunk max + eps)
-    exceeds the 16th value. Both de-certify, and finalize redoes the
-    batch on the exact path."""
+@pytest.mark.parametrize("method", ["streaming", "chunkstream"])
+def test_uncertified_batch_redone_in_finalize(method):
+    """8 of the top-16 in adjacent rows of one streaming range (weighted
+    scores 10 .. 3), and the other 8 among 40 near-ties scoring 2.0 -
+    2e-6 i, one in each of 40 chunks. Streaming keeps each range's top-16,
+    so the cluster certifies with no redo. Chunkstream fetches 32 chunks,
+    fewer than the 40, so its bound (the 32nd chunk max + eps, eps >=
+    1e-4 > 24 * 2e-6) exceeds the 16th value: it de-certifies and
+    finalize redoes the batch on the exact path. Both give the exact
+    hits."""
     n, k = 6000, 16
     _, tstore, vecs = _cs_stores(n=n)
     target = vecs[0].copy()
     w = tstore.corpus.level_weights(tstore.config.level_weights)
     tstore.load_collection()
-    slots = slot_count(1, tstore._dev["corpus"].shape[0], k)
-    for rank in range(8):  # one streaming slot, weighted scores 10 .. 3
-        row = 3 + slots * rank
+    n_dev = tstore._dev["corpus"].shape[0]
+    assert range_rows(n_dev, slot_count(1, n_dev, k)) >= 28  # rows 20..27 share range 0
+    for rank in range(8):
+        row = 20 + rank
         tstore._vectors[row] = target * (10.0 - rank) / w[row]
-    for i in range(40):  # one row scoring 2.0 in each of 40 chunks
+    for i in range(40):  # one near-tie in each of 40 chunks
         row = 128 * i + 5
-        tstore._vectors[row] = target * 2.0 / w[row]
+        tstore._vectors[row] = target * (2.0 - 2e-6 * i) / w[row]
     tstore.release_collection()
     q = target[None, :]
     exact = tstore.search(q, k, method="exact")
-    for method in ("streaming", "chunkstream"):
-        before = dict(tstore.get_collection_stats()["certificate"])
-        got = tstore.search(q, k, method=method)
-        after = tstore.get_collection_stats()["certificate"]
-        assert after["redos"] == before["redos"] + 1, method
-        assert after["certified"] == before["certified"], method
-        _assert_same_hits(got, exact)
+    before = dict(tstore.get_collection_stats()["certificate"])
+    got = tstore.search(q, k, method=method)
+    after = tstore.get_collection_stats()["certificate"]
+    redone = method == "chunkstream"
+    assert after["redos"] == before["redos"] + redone
+    assert after["certified"] == before["certified"] + (not redone)
+    _assert_same_hits(got, exact)
