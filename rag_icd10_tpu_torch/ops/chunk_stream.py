@@ -11,7 +11,10 @@ Two passes:
    scan dtype: fp32 (exact), bf16 (half the bytes) or int8 with per-row
    scales (a quarter). The TPU kernels keep F transposed, (D, N), and
    write (N/128, B) only for Mosaic's layouts; the port keeps F (N, D)
-   row-major and writes (B, N/128).
+   row-major and writes (B, N/128). ``chunk_max_plan`` picks one kernel
+   path per (B, D, dtype): "stream" for small batches (up to 16 queries
+   for fp32, 2 for bf16), "mma" (tensor cores) for bf16 above and for
+   int8 at every B, "simt" for fp32 above.
 2. **Block gather + exact re-score** (K5; ``csrc/gather_rescore.cu``):
    the top ``mc`` chunks of each query are read as contiguous 128-row
    blocks of the raw fp32 corpus and scored in IEEE fp32.
@@ -25,7 +28,8 @@ chunks are masked. fp32 scans still carry ``EPS_FP32_DOT``, because pass
 the two roundings differ. bf16 and int8 scans widen the bound by the
 exact build-time quantization residual (Cauchy-Schwarz:
 |dot(q, c_hat - c)| <= ||q|| * max_row ||c_hat - c||) plus the query's
-bf16 rounding. Pass 2 is exact fp32 for every scan, so a certified
+bf16 rounding. A pass 1 on the tensor cores takes its own accumulation
+term (``eps_tc_dot``). Pass 2 is exact fp32 for every scan, so a certified
 result is exact whatever the scan dtype.
 
 Each kernel wrapper launches its kernel on a CUDA tensor (or raises) and
@@ -63,6 +67,32 @@ def _cdiv(a: int, b: int) -> int:
 # (d + 1) * 2^-24 * ||q|| * ||c|| = 4.6e-5; doubled for the two conventions
 # that is 9.2e-5 < 1e-4. The JAX package's value holds unchanged.
 EPS_FP32_DOT = 1e-4
+
+
+def eps_tc_dot(d: int) -> float:
+    """The same gap when pass 1 ran on the tensor cores (the "mma" path of
+    ``chunk_max_plan``), for D = d, per unit of ||q|| * ||c||.
+
+    The bf16 x bf16 products are exact in fp32; only the accumulation
+    differs from round-to-nearest fp32. Model of an mma accumulation step
+    (documented for NVIDIA's tensor cores and assumed here): it adds the
+    accumulator and n_b >= 4 exact products, aligning each addend to the
+    largest of them, M, with 24 significant bits, and truncates the sum to
+    fp32. Each of the n_b + 1 alignments errs by less than 2^-23 M, and the
+    final truncation by less than 2^-23 M (the sum's excess over M is
+    counted in the alignments), so a step errs by at most (n_b + 2) 2^-23 M,
+    with M <= S = sum_i |q_i c_i| <= ||q|| ||c||. Only steps that hold a
+    real column err (zero products add exactly): at most 16 / n_b of each
+    of the ceil(d / 16) k16 blocks, however the kernel permutes the
+    k-values within a block. Over them: ceil(d / 16) (16 / n_b) (n_b + 2)
+    2^-23 S, largest at the smallest n_b, 4: 24 ceil(d / 16) 2^-23.
+    Pass 2's round-to-nearest fp32 dot and weight product add
+    (d + 1) 2^-24, and the fp32 fold w * c, against which the stored
+    rows' residual is measured, 2^-24: at d = 768, 1.37e-4 + 4.6e-5 =
+    1.83e-4; at d = 1024, 2.44e-4."""
+    return 24 * _cdiv(d, 16) * 2.0 ** -23 + (d + 2) * 2.0 ** -24
+
+
 # worst-case relative l2 error of rounding the query to bf16: round to
 # nearest (__float2bfloat16_rn in the kernels, Tensor.to(bfloat16) in the
 # plain versions) errs by at most half an ulp, 2^-9, per element, so
@@ -71,6 +101,100 @@ EPS_BF16_VEC = 1.25 * 2.0 ** -9
 
 SCANS = ("pallas", "xla", "xla_high", "bf16", "int8")
 _SCAN_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
+
+
+# --------------------------------------------------------------- plan
+
+#: largest batch of the "stream" path, by stored dtype; above it bf16 and
+#: int8 stores take "mma" and fp32 stores "simt". Measured on an H100
+#: (chip_smoke.py's threshold rows, recorded in PERF.md): "stream" costs
+#: steps with its query tile (1, 2, 4, 8 or 16 rows, SIMT fmaf), "mma" is
+#: flat up to its 16-query tile; they cross at 2 to 4 queries for bf16,
+#: while int8 was faster on "mma" at every batch measured (2 to 16
+#: queries); for fp32 "stream" at 16 beats "simt" at 17. The kernel is
+#: built for these tiles only.
+STREAM_MAX_B = {torch.float32: 16, torch.bfloat16: 2, torch.int8: 0}
+#: rows per group: the "stream" path splits the rows between its blocks in
+#: whole groups (stream::GROUP in csrc/chunk_max.cu)
+STREAM_GROUP = 32
+#: resident "stream" blocks per SM where the shared memory allows
+#: (__launch_bounds__(256, 2) in chunk_max.cu)
+STREAM_BLOCKS_PER_SM = 2
+#: a "stream" block's shared memory besides its fp32 query block: 8 warps'
+#: rings of 4 stages x 2 KB (stream::launch in chunk_max.cu)
+STREAM_RING_BYTES = 64 * 1024
+#: an H100 SM's shared memory, the most one block may take of it, and what
+#: the card reserves per resident block (CUDA guide, compute capability 9.0)
+SM_SMEM_BYTES = 228 * 1024
+BLOCK_SMEM_BYTES = 227 * 1024
+BLOCK_RESERVED_SMEM = 1024
+_PATHS = {"stream": 0, "mma": 1, "simt": 2}
+
+
+@dataclass(frozen=True)
+class ChunkMaxPlan:
+    """The one kernel path ``chunk_maxima`` launches for a (B, N, D, dtype).
+
+    path:      "stream" (B <= STREAM_MAX_B[dtype] and the query block fits
+               in shared memory), else "mma" (bf16 and int8) or "simt"
+               (fp32)
+    rows:      N
+    blocks:    "stream": blocks, each a contiguous range of whole
+               STREAM_GROUP-row groups (``row_ranges``)
+    tile_rows: "mma": queries per block, 16, 32, 64 or 128
+    """
+
+    path: str
+    rows: int
+    blocks: int = 0
+    tile_rows: int = 0
+
+    def row_ranges(self):
+        """(start, end) rows of each "stream" block, as the kernel cuts
+        them: block i takes groups [i*G // blocks, (i+1)*G // blocks)."""
+        groups = self.rows // STREAM_GROUP
+        return [
+            (i * groups // self.blocks * STREAM_GROUP,
+             (i + 1) * groups // self.blocks * STREAM_GROUP)
+            for i in range(self.blocks)
+        ]
+
+
+def _pow2_tile(b: int, smallest: int) -> int:
+    """The smallest power of two, at least ``smallest``, that holds b."""
+    return max(smallest, 1 << (b - 1).bit_length())
+
+
+def chunk_max_plan(b: int, n: int, d: int, dtype, sm_count: int) -> ChunkMaxPlan:
+    """Pick the chunk-max path for B queries over N rows (N % 128 == 0) of
+    D columns in a store of ``dtype`` (a torch dtype or
+    "fp32"/"bf16"/"int8") on a card with ``sm_count`` SMs. "stream" takes
+    min(blocks per SM * sm_count, N / 32) blocks, so all are resident at
+    once: 2 per SM where two blocks' shared memory fits in an SM, else 1;
+    a D whose query block does not fit in one block's shared memory goes
+    to the large-batch path."""
+    dtype = _SCAN_DTYPES.get(dtype, dtype)
+    if dtype not in _SCAN_DTYPES.values():
+        raise TypeError(f"corpus dtype {dtype}: float32, bfloat16 or int8")
+    smem = STREAM_RING_BYTES + _pow2_tile(b, 1) * d * 4
+    if b <= STREAM_MAX_B[dtype] and smem <= BLOCK_SMEM_BYTES:
+        per_sm = min(STREAM_BLOCKS_PER_SM, SM_SMEM_BYTES // (smem + BLOCK_RESERVED_SMEM))
+        return ChunkMaxPlan("stream", n, blocks=min(per_sm * sm_count, n // STREAM_GROUP))
+    if dtype == torch.float32:
+        return ChunkMaxPlan("simt", n)
+    return ChunkMaxPlan("mma", n, tile_rows=min(128, _pow2_tile(b, 16)))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _plan_for(queries: torch.Tensor, folded: torch.Tensor) -> ChunkMaxPlan:
+    n, d = folded.shape
+    return chunk_max_plan(
+        queries.shape[0], n, d, folded.dtype, _sm_count(folded.device.index or 0)
+    )
 
 
 # --------------------------------------------------------------- pass 1
@@ -100,7 +224,7 @@ def chunk_maxima_reference(
 @functools.cache
 def _chunk_max_kernel():
     fn = cuda_build.load("chunk_max").chunk_max_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -109,12 +233,15 @@ def chunk_maxima(
     queries: torch.Tensor,
     folded: torch.Tensor,
     scales: Optional[torch.Tensor] = None,
+    plan: Optional[ChunkMaxPlan] = None,
 ) -> torch.Tensor:
     """(B, D) x (N, D) weight-folded -> (B, N/128) weighted chunk maxima;
-    the (B, N) scores stay in registers. ``folded`` is fp32, bf16 or int8
-    (then ``scales`` (N,) fp32). N % 128 == 0. ``chunk_maxima.launches``
-    counts launches of the fp32 and bf16 paths (K3),
-    ``chunk_maxima.launches_int8`` those of the int8 path (K4)."""
+    the (B, N) scores never reach device memory. ``folded`` is fp32, bf16
+    or int8 (then ``scales`` (N,) fp32). N % 128 == 0. On a CUDA tensor it
+    launches ``plan``'s path, by default ``chunk_max_plan``'s (a caller
+    that needs to know the path decides it once and passes it in).
+    ``chunk_maxima.launches`` counts launches of the fp32 and bf16 stores
+    (K3), ``chunk_maxima.launches_int8`` those of the int8 store (K4)."""
     b, d = queries.shape
     n, d2 = folded.shape
     if d != d2:
@@ -138,16 +265,25 @@ def chunk_maxima(
         raise ValueError(f"D={d}: rows are read 16 bytes at a time")
     q = queries.to(torch.float32).contiguous()
     sc = scales.to(torch.float32).contiguous() if int8 else q
-    if q.data_ptr() % 16 or folded.data_ptr() % 16:
-        raise ValueError("queries and corpus must be 16-byte aligned")
-    out = torch.empty((b, n // CHUNK), dtype=torch.float32, device=folded.device)
+    if q.data_ptr() % 16 or folded.data_ptr() % 16 or sc.data_ptr() % 16:
+        raise ValueError("queries, corpus and scales must be 16-byte aligned")
+    dev = folded.device
+    out = torch.empty((b, n // CHUNK), dtype=torch.float32, device=dev)
     if b == 0 or n == 0:
         return out
+    plan = plan or _plan_for(q, folded)
+    scratch = q  # unused unless "mma": the queries rounded to bf16, padded
+    if plan.path == "mma":
+        bm = plan.tile_rows
+        scratch = torch.empty(
+            (_cdiv(b, bm) * bm, _cdiv(d, 64) * 64), dtype=torch.bfloat16, device=dev
+        )
     dtype = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[folded.dtype]
-    with torch.cuda.device(folded.device):
+    with torch.cuda.device(dev):
         err = _chunk_max_kernel()(
             q.data_ptr(), folded.data_ptr(), sc.data_ptr(), out.data_ptr(),
-            b, n, d, dtype, torch.cuda.current_stream().cuda_stream,
+            scratch.data_ptr(), b, n, d, dtype, _PATHS[plan.path], plan.blocks,
+            plan.tile_rows, torch.cuda.current_stream().cuda_stream,
         )
     if err:
         raise RuntimeError(f"chunk_max kernel launch failed: CUDA error {err}")
@@ -353,6 +489,35 @@ def build_device(
 # --------------------------------------------------------------- search
 
 
+def _pass1_plan(
+    queries: torch.Tensor, folded: torch.Tensor, scan: str
+) -> Optional[ChunkMaxPlan]:
+    """The kernel plan pass 1 runs: the plan's on a CUDA tensor with the
+    kernel scan, None where the plain version runs."""
+    if scan != "pallas" or folded.device.type != "cuda":
+        return None
+    return _plan_for(queries, folded)
+
+
+def certificate_eps(
+    dtype: torch.dtype, scan: str, path: Optional[str], resid_max: float,
+    bound_scale: float, d: int,
+) -> float:
+    """Per unit of ||q||: how far an unfetched row's true weighted score
+    may exceed its chunk's measured maximum, for D = d. ``path`` is the
+    kernel path pass 1 ran: "mma" accumulated on the tensor cores and
+    takes ``eps_tc_dot(d)``; every other path, and the plain version,
+    EPS_FP32_DOT."""
+    dot = eps_tc_dot(d) if path == "mma" else EPS_FP32_DOT
+    if dtype in (torch.bfloat16, torch.int8):
+        # Cauchy-Schwarz on the measured quantization residual, plus the
+        # query's bf16 rounding and the fp32 accumulation gap
+        return resid_max + (EPS_BF16_VEC + dot) * bound_scale
+    if scan == "xla_high":
+        return EPS_HIGH_DOT * bound_scale
+    return dot * bound_scale
+
+
 def chunk_stream_search(
     queries: torch.Tensor,
     folded: torch.Tensor,
@@ -380,7 +545,8 @@ def chunk_stream_search(
       "xla_high" the plain version over fp32 in IEEE fp32, widened by
                  EPS_HIGH_DOT (ops/rerank.py says why it is not TF32);
       "bf16"/"int8" aliases of "xla" over a store of that dtype.
-    The certificate epsilon follows the stored dtype. Default
+    The certificate epsilon follows the stored dtype and the kernel path
+    (``certificate_eps``). Default
     mc = max(2k, k + 16), capped at the chunk count; fetching every real
     chunk certifies. ``guarantee=True`` reads the certificate (one host
     sync) and redoes an uncertified batch on the exact K1 path."""
@@ -403,8 +569,10 @@ def chunk_stream_search(
         raise ValueError(f"scan='xla_high' needs an fp32 store, got {dtype}")
     queries = queries.to(torch.float32)
 
+    # decided once: the launch and the certificate's epsilon follow it
+    plan = _pass1_plan(queries, folded, scan)
     if scan == "pallas":
-        cm = chunk_maxima(queries, folded, scales)
+        cm = chunk_maxima(queries, folded, scales, plan)
     else:
         cm = chunk_maxima_reference(queries, folded, scales)
     # fully padded chunks can never win; partly padded chunks keep their
@@ -430,14 +598,8 @@ def chunk_stream_search(
     # an unfetched row's true weighted score can exceed its chunk's
     # measured maximum by the scan's rounding; pass-2 values are exact
     q_norms = torch.sqrt(torch.sum(queries * queries, dim=1))
-    if dtype in (torch.bfloat16, torch.int8):
-        # Cauchy-Schwarz on the measured quantization residual, plus the
-        # query's bf16 rounding and the fp32 accumulation gap
-        eps = (resid_max + (EPS_BF16_VEC + EPS_FP32_DOT) * bound_scale) * q_norms
-    elif scan == "xla_high":
-        eps = EPS_HIGH_DOT * bound_scale * q_norms
-    else:
-        eps = EPS_FP32_DOT * bound_scale * q_norms
+    path = plan.path if plan else None
+    eps = certificate_eps(dtype, scan, path, resid_max, bound_scale, d) * q_norms
     chunk_bound = cvals[:, mc - 1] + eps
     if mc >= nc_real:
         # every real chunk was re-scored exactly: the result is exact, and

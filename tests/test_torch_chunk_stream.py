@@ -252,6 +252,135 @@ def test_all_chunks_fetched_certifies():
     np.testing.assert_array_equal(idx.numpy(), brute(q, vecs, w, 10)[1])
 
 
+@pytest.mark.parametrize("b", [1, 2, 3, 8, 9, 16, 17, 32, 33, 64, 65, 256])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+def test_chunk_max_plan_table(b, dtype):
+    """One path per (B, dtype) at D = 768: "stream" up to the dtype's
+    threshold (16 for fp32, 2 for bf16, none for int8) and on either side
+    of it, then "mma" (16- to 128-query tiles) for bf16 and int8, "simt"
+    for fp32."""
+    plan = tcs.chunk_max_plan(b, 40960, 768, dtype, sm_count=132)
+    assert plan == tcs.chunk_max_plan(b, 40960, 768, tcs._SCAN_DTYPES[dtype], 132)
+    if b <= {"fp32": 16, "bf16": 2, "int8": 0}[dtype]:
+        assert (plan.path, plan.blocks, plan.tile_rows) == ("stream", 264, 0)
+    elif dtype == "fp32":
+        assert (plan.path, plan.blocks, plan.tile_rows) == ("simt", 0, 0)
+    else:
+        assert plan.path == "mma"
+        assert plan.tile_rows == (16 if b <= 16 else 32 if b <= 32 else 64 if b <= 64 else 128)
+
+
+@pytest.mark.parametrize("b,d,dtype,path,blocks", [
+    (16, 768, "fp32", "stream", 264),    # 112 KB a block: 2 per SM
+    (8, 1536, "fp32", "stream", 264),
+    (16, 1024, "fp32", "stream", 132),   # 128 KB: 1 per SM
+    (16, 2608, "fp32", "stream", 132),   # 227 KB, the most a block may take
+    (16, 2616, "fp32", "simt", 0),       # the query block does not fit
+    (2, 20864, "bf16", "stream", 132),
+    (2, 20872, "bf16", "mma", 0),
+    (1, 768, "int8", "mma", 0),
+])
+def test_stream_plan_fits_shared_memory(b, d, dtype, path, blocks):
+    """"stream" keeps 2 blocks per SM where two blocks' rings and fp32
+    query blocks fit in an SM, 1 where only one fits, and hands a D whose
+    query block exceeds a block's shared memory to the large-batch path,
+    so every D the wrapper accepts has a path."""
+    plan = tcs.chunk_max_plan(b, 40960, d, dtype, sm_count=132)
+    assert (plan.path, plan.blocks) == (path, blocks)
+    if path == "stream":
+        assert tcs.STREAM_RING_BYTES + b * d * 4 <= tcs.BLOCK_SMEM_BYTES
+
+
+@pytest.mark.parametrize("n,blocks,cut", [
+    (40960, 264, 192),   # the main shape: 1,280 groups, ranges of 4 or 5
+    (33152, 264, 198),   # 259 chunks, 1,036 groups: ranges of 3 or 4
+    (1024, 32, 8),       # fewer groups than 2 per SM: one group per block
+    (1 << 20, 264, 192),
+])
+def test_stream_row_ranges(n, blocks, cut):
+    """The "stream" split covers N exactly with ranges of whole 32-row
+    groups that differ by at most one group; a chunk is cut where a range
+    starts inside it, and only there."""
+    plan = tcs.chunk_max_plan(2, n, 768, "bf16", sm_count=132)
+    assert plan.path == "stream" and plan.blocks == blocks
+    ranges = plan.row_ranges()
+    assert ranges[0][0] == 0 and ranges[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    sizes = [e - s for s, e in ranges]
+    assert all(s % tcs.STREAM_GROUP == 0 and s > 0 for s in sizes)
+    assert max(sizes) - min(sizes) <= tcs.STREAM_GROUP
+    owners = {}
+    for i, (s, e) in enumerate(ranges):
+        for chunk in range(s // 128, (e - 1) // 128 + 1):
+            owners.setdefault(chunk, set()).add(i)
+    assert sorted(owners) == list(range(n // 128))  # every chunk gets rows
+    cut_chunks = {c for c, o in owners.items() if len(o) > 1}
+    assert cut_chunks == {s // 128 for s, _ in ranges[1:] if s % 128}
+    assert len(cut_chunks) == cut
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("b", [1, 2, 3, 8, 9, 16, 17])
+def test_certificate_eps_follows_the_plan(dtype, b):
+    """The tensor-core epsilon exactly where the plan says "mma"; today's
+    epsilon on every other path and on the plain version."""
+    torch_dtype = tcs._SCAN_DTYPES[dtype]
+    path = tcs.chunk_max_plan(b, 40960, 768, dtype, sm_count=132).path
+    resid, bscale = 0.01, 1.2
+    eps = tcs.certificate_eps(torch_dtype, "pallas", path, resid, bscale, 768)
+    tensor_cores = dtype != "fp32" and b > tcs.STREAM_MAX_B[torch_dtype]
+    assert (path == "mma") == tensor_cores
+    dot = tcs.eps_tc_dot(768) if tensor_cores else tcs.EPS_FP32_DOT
+    if dtype == "fp32":
+        assert eps == dot * bscale
+    else:
+        assert eps == resid + (tcs.EPS_BF16_VEC + dot) * bscale
+    plain = tcs.certificate_eps(torch_dtype, "pallas", None, resid, bscale, 768)
+    assert plain == tcs.certificate_eps(torch_dtype, "pallas", "stream", resid, bscale, 768)
+    assert (eps > plain) == tensor_cores
+
+
+@pytest.mark.parametrize("d", [8, 72, 80, 768, 1024, 1536, 4096])
+def test_eps_tc_dot_covers_truncating_accumulation(d):
+    """The tensor-core term covers ceil(d / 4) truncating steps of 4
+    products (6 * 2^-23 each) plus pass 2's rounding, (d + 1) * 2^-24; it
+    exceeds two round-to-nearest fp32 sums and grows with d."""
+    eps = tcs.eps_tc_dot(d)
+    assert eps >= -(-d // 4) * 6 * 2.0 ** -23 + (d + 1) * 2.0 ** -24
+    assert eps > 2 * (d + 1) * 2.0 ** -24
+    assert tcs.eps_tc_dot(d + 16) > eps
+    if d == 768:
+        assert eps > tcs.EPS_FP32_DOT
+
+
+@pytest.mark.parametrize("path", [None, "stream", "mma"])
+def test_search_passes_pass1_path_to_certificate(small_problem, monkeypatch, path):
+    """chunk_stream_search decides pass 1's plan once, launches it, and
+    takes its epsilon from it: on the CPU no kernel runs (None); the plan
+    is stubbed to show that a CUDA run's "mma" reaches the certificate."""
+    vecs, w, q = small_problem
+    _, tstore = _stores(vecs, w, "bf16")
+    seen, launched = [], []
+    real_eps, real_maxima = tcs.certificate_eps, tcs.chunk_maxima
+
+    def spy_eps(dtype, scan, p, resid_max, bound_scale, d):
+        seen.append((p, d))
+        return real_eps(dtype, scan, p, resid_max, bound_scale, d)
+
+    def spy_maxima(queries, folded, scales=None, plan=None):
+        launched.append(plan)
+        return real_maxima(queries, folded, scales, plan)
+
+    monkeypatch.setattr(tcs, "certificate_eps", spy_eps)
+    monkeypatch.setattr(tcs, "chunk_maxima", spy_maxima)
+    plan = None if path is None else tcs.ChunkMaxPlan(path, tstore.folded.shape[0])
+    calls = []
+    monkeypatch.setattr(tcs, "_pass1_plan", lambda *args: calls.append(1) or plan)
+    tcs.search(tstore, t(q), k=10, mc=6)
+    assert seen == [(path, q.shape[1])]
+    assert launched == [plan] and len(calls) == 1
+
+
 def test_bad_inputs_and_no_launch_on_cpu(problem):
     vecs, w, q = problem
     _, tstore = _stores(vecs, w, "bf16")

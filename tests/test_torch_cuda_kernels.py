@@ -11,7 +11,10 @@ Tolerance 5e-5: the kernels sum D products sequentially in fp32 (fmaf),
 the plain versions in cuBLAS's order; for unit vectors at D = 768 the
 worst-case difference of two fp32 sums is below that. Order statistics
 (a range's candidates and bound, a chunk's maximum) move by no more than
-the scores they are taken from, so they share the tolerance.
+the scores they are taken from, so they share the tolerance. The chunk
+maxima's "mma" path sums exact bf16 products on the tensor cores; on
+random unit vectors its accumulation errs far below 5e-5 (its worst case,
+eps_tc_dot, has a test of its own).
 """
 
 import numpy as np
@@ -213,6 +216,129 @@ def test_chunk_max_matches_plain(cuda, b, n, d, dtype):
     want = chunk_stream.chunk_maxima_reference(q, f, scales)
     assert got.shape == (b, n // 128)
     torch.testing.assert_close(got, want, atol=TOL, rtol=0)
+
+
+def _store(f, dtype):
+    """Folded fp32 rows as a store of ``dtype``: (rows, scales or None)."""
+    if dtype == "bf16":
+        return f.to(torch.bfloat16), None
+    if dtype == "int8":
+        return quantize_rows(f)
+    return f, None
+
+
+def _launch_checked(q, f, scales, dtype, dev):
+    """One chunk_maxima call: the plan's path, each launch counter moved
+    as it should (once for the store's kernel, not at all for the other)."""
+    plan = chunk_stream.chunk_max_plan(
+        q.shape[0], *f.shape, f.dtype, torch.cuda.get_device_properties(dev).multi_processor_count
+    )
+    counter, other = ("launches_int8", "launches") if dtype == "int8" else ("launches", "launches_int8")
+    before = (getattr(chunk_stream.chunk_maxima, counter), getattr(chunk_stream.chunk_maxima, other))
+    got = chunk_stream.chunk_maxima(q, f, scales)
+    torch.cuda.synchronize()
+    after = (getattr(chunk_stream.chunk_maxima, counter), getattr(chunk_stream.chunk_maxima, other))
+    assert after == (before[0] + 1, before[1])
+    return plan, got
+
+
+# N = 20,608 rows: 161 chunks, 644 groups of 32 rows over 264 "stream"
+# blocks, so the row ranges (2 or 3 groups) cut most chunks
+CUT_N = 20608
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 2, 4, 8, 16, 17, 32, 64, 100, 256])
+@pytest.mark.parametrize("d", [80, 768])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+def test_chunk_max_paths_match_plain(cuda, b, d, dtype):
+    """Every path x store against the plain version: "stream" up to
+    the store's threshold (16 fp32, 2 bf16, none for int8; chunks cut
+    between blocks merged by atomics), "mma" (bf16, int8) and "simt"
+    (fp32) above;
+    D = 80 leaves a D tail in the slices; the last 50 rows are zero, as a
+    store's padding is, so the last chunk is partly padded."""
+    q, f = _chunk_problem(b, CUT_N, d, seed=b + d, dev=cuda)
+    f[-50:] = 0.0
+    f, scales = _store(f, dtype)
+    plan, got = _launch_checked(q, f, scales, dtype, cuda)
+    limit = chunk_stream.STREAM_MAX_B[f.dtype]
+    expected = "stream" if b <= limit else ("simt" if dtype == "fp32" else "mma")
+    assert plan.path == expected
+    if plan.path == "stream":
+        assert any(s % 128 for s, _ in plan.row_ranges())  # chunks are cut
+    want = chunk_stream.chunk_maxima_reference(q, f, scales)
+    assert got.shape == (b, CUT_N // 128)
+    torch.testing.assert_close(got, want, atol=TOL, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [2, 16, 17, 64])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+def test_chunk_max_all_negative_scores(cuda, b, dtype):
+    """Every score negative: the atomic merge of cut chunks must keep the
+    largest negative value (0xFF fill, unsigned view) on every path."""
+    q, f = _chunk_problem(b, CUT_N, 768, seed=b, dev=cuda)
+    q, f = q.abs(), -f.abs()
+    f, scales = _store(f, dtype)
+    _, got = _launch_checked(q, f, scales, dtype, cuda)
+    want = chunk_stream.chunk_maxima_reference(q, f, scales)
+    assert bool((want < 0).all())
+    torch.testing.assert_close(got, want, atol=TOL, rtol=0)
+
+
+@pytest.mark.gpu
+def test_chunk_max_main_shape(cuda):
+    """The main path's shape: B = 2, N = 40,960, D = 768, fp32, on the
+    "stream" path over 2 blocks per SM."""
+    q, f = _chunk_problem(2, 40960, 768, seed=2, dev=cuda)
+    plan, got = _launch_checked(q, f, None, "fp32", cuda)
+    assert plan.path == "stream" and plan.blocks == min(
+        2 * torch.cuda.get_device_properties(cuda).multi_processor_count, 40960 // 32)
+    torch.testing.assert_close(got, chunk_stream.chunk_maxima_reference(q, f), atol=TOL, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,d,dtype,path", [
+    (2, 1536, "fp32", "stream"),    # 2 blocks per SM
+    (16, 1536, "fp32", "stream"),   # 160 KB a block: 1 per SM
+    (16, 2624, "fp32", "simt"),     # the query block does not fit: "simt"
+    (17, 1536, "fp32", "simt"),
+    (2, 1536, "bf16", "stream"),
+    (64, 1536, "bf16", "mma"),
+    (2, 1536, "int8", "mma"),
+    (256, 1536, "int8", "mma"),
+])
+def test_chunk_max_wide_rows(cuda, b, d, dtype, path):
+    """D above 1024 on every path: "stream" with one block per SM where
+    two do not fit, the large-batch path where the query block exceeds a
+    block's shared memory, and "mma" with its epsilon computed from D."""
+    q, f = _chunk_problem(b, CUT_N, d, seed=b + d, dev=cuda)
+    f, scales = _store(f, dtype)
+    plan, got = _launch_checked(q, f, scales, dtype, cuda)
+    assert plan.path == path
+    torch.testing.assert_close(
+        got, chunk_stream.chunk_maxima_reference(q, f, scales), atol=TOL, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [64, 256])
+@pytest.mark.parametrize("d", [768, 1536])
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_mma_chunk_max_within_tensor_core_eps(cuda, b, d, dtype):
+    """Soundness of eps_tc_dot(d): the "mma" maxima lie within it of the
+    fp64 chunk maxima of the same inputs (bf16(q), the stored rows, the
+    scales), per unit of ||bf16(q)|| * max ||stored row||."""
+    q, f = _chunk_problem(b, 40960, d, seed=b, dev=cuda)
+    f, scales = _store(f, dtype)
+    plan, got = _launch_checked(q, f, scales, dtype, cuda)
+    assert plan.path == "mma"
+    q64 = q.to(torch.bfloat16).double()
+    rows = f.double() * (scales.double()[:, None] if scales is not None else 1.0)
+    want = (q64 @ rows.T).view(b, -1, 128).amax(dim=2)
+    scale = q64.norm(dim=1, keepdim=True) * rows.norm(dim=1).max()
+    err = ((got.double() - want).abs() / scale).max().item()
+    assert err <= chunk_stream.eps_tc_dot(d), err
 
 
 @pytest.mark.gpu
