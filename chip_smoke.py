@@ -10,8 +10,13 @@
 3. Kernel phase: holds each kernel against its plain PyTorch version on
    the card and times the kernel, the plain version and one library call
    computing the same function (CUDA events). K1 at the served corpus
-   shape (40,474 rows padded to 40,960, D = 768) for B in {8, 64, 256}
-   and every mode; K2-K5 at that shape and at N = 1,048,576 (rows made
+   shape (40,474 rows padded to 40,960, D = 768) for B in {2, 8, 16, 64,
+   256} and every mode, each row naming the path fused_score_plan took
+   ("stream", "mma" or "tile") with its host and card times beside the
+   library's; K1's threshold rows time fp32 at B in {8, 16} on "stream"
+   and "tile" and a bf16 corpus on "mma" with 16- and 32-query tiles,
+   each held against the plain version; K2-K5 at that shape and at
+   N = 1,048,576 (rows made
    on the card from a seeded generator) for B in {8, 64, 256} and
    k in {10, 100}, K3/K4 also at B in {2, 16, 17}. Each K3/K4 row names
    the path chunk_max_plan took ("stream", "mma" with its TFLOP/s, or
@@ -147,6 +152,19 @@ def device_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def k1_times(fn, plain, library, reps: int = 20) -> dict:
+    """K1's times: back to back (ms), on the card (device_ms), per call on
+    the host (host_ms); the plain version; the library call on the card
+    and back to back."""
+    return {
+        "ms": time_ms(fn, reps), "device_ms": device_ms(fn, reps),
+        "host_ms": host_ms(fn, reps), "plain_ms": time_ms(plain, reps),
+        "library_ms": time_ms(library, reps),
+        "library_device_ms": device_ms(library, reps),
+        "library_host_ms": host_ms(library, reps),
+    }
+
+
 def score_bound_ms(b: int, n: int, d: int, corpus_bytes: int, kind: str):
     """Least time for (B, D) x (N, D) -> (B, N) weighted scores: each input
     read once, the output written once, or the products at peak rate."""
@@ -163,7 +181,9 @@ def kernel_phase(weights_np):
     import torch
 
     from rag_icd10_tpu_torch.ops.flat_topk import pad_corpus, weighted_scores_reference
-    from rag_icd10_tpu_torch.ops.fused_score import fused_weighted_scores
+    from rag_icd10_tpu_torch.ops.fused_score import (
+        fused_score_plan, fused_weighted_scores, sm_count,
+    )
 
     rng = np.random.default_rng(1)
     c = rng.standard_normal((N_REAL, DIM), dtype=np.float32)
@@ -187,7 +207,7 @@ def kernel_phase(weights_np):
                         .float().mul_(w).add_(m)),
     }
     rows = []
-    for b in (8, 64, 256):
+    for b in (2, 8, 16, 64, 256):
         q_np = rng.standard_normal((b, DIM), dtype=np.float32)
         q_np /= np.linalg.norm(q_np, axis=1, keepdims=True)
         q = torch.from_numpy(q_np).to(dev)
@@ -207,19 +227,21 @@ def kernel_phase(weights_np):
                 check(err32 <= TOL_BF16_VS_FP32,
                       f"K1 bf16 corpus B={b} vs fp32 scores {err32} > {TOL_BF16_VS_FP32}")
             bound, bound_by = score_bound_ms(b, n, DIM, cbytes, kind)
+            plan = fused_score_plan(b, n, DIM, corpus.dtype, exact, sm_count(dev.index or 0))
             row = {
-                "mode": mode, "B": b, "N": n, "D": DIM,
+                "mode": mode, "B": b, "N": n, "D": DIM, "path": plan.path,
                 "max_abs_err": err,
-                "ms": time_ms(lambda: fused_weighted_scores(q, corpus, w, m, exact=exact)),
-                "plain_ms": time_ms(
-                    lambda: weighted_scores_reference(q, corpus, w, m, exact=exact)),
-                "library_ms": time_ms(lambda: library(q)),
+                **k1_times(lambda: fused_weighted_scores(q, corpus, w, m, exact=exact),
+                           lambda: weighted_scores_reference(q, corpus, w, m, exact=exact),
+                           lambda: library(q)),
                 "bound_ms": bound, "bound_by": bound_by,
             }
             rows.append(row)
             print("K1 " + json.dumps(row), flush=True)
             del got, want
         del exact_ref
+    gen = torch.Generator(device=dev).manual_seed(5)
+    threshold = k1_threshold_rows(corpus32, corpus16, w, m, gen)
     k25 = certified_sweep(corpus32, w, m, N_REAL, seed=3, reps=10)
     del corpus16
     torch.cuda.empty_cache()
@@ -227,7 +249,45 @@ def kernel_phase(weights_np):
     large = certified_sweep(*big, N_LARGE, seed=4, reps=3)
     del big
     torch.cuda.empty_cache()
-    return rows, {name: k25[name] + large[name] for name in k25}
+    return rows, threshold, {name: k25[name] + large[name] for name in k25}
+
+
+def k1_threshold_rows(corpus32, corpus16, w, m, gen, reps: int = 20):
+    """K1 on both of its paths at B = 8 and 16, each passed in through
+    ``plan=`` and held against the plain version, timed on the card: fp32
+    on "stream" (the plan's) and "tile" (the evidence for
+    SCORE_STREAM_MAX_B); a bf16 corpus on "mma" with the plan's 16-query
+    tile and a 32-query tile."""
+    import torch
+
+    from rag_icd10_tpu_torch.ops.flat_topk import weighted_scores_reference
+    from rag_icd10_tpu_torch.ops.fused_score import (
+        ScorePlan, fused_score_plan, fused_weighted_scores, sm_count,
+    )
+
+    n, d = corpus32.shape
+    sms = sm_count(corpus32.device.index or 0)
+    rows = []
+    for b in (8, 16):
+        q = torch.randn((b, d), generator=gen, device=corpus32.device)
+        q /= q.norm(dim=1, keepdim=True)
+        for corpus, other in ((corpus32, ScorePlan("tile", False)),
+                              (corpus16, ScorePlan("mma", True, tile_rows=32))):
+            plan = fused_score_plan(b, n, d, corpus.dtype, True, sms)
+            want = weighted_scores_reference(q, corpus, w, m)
+            row = {"corpus": str(corpus.dtype).replace("torch.", ""), "B": b, "N": n,
+                   "plan": plan.path}
+            for p in (plan, other):
+                name = f"{p.path}{p.tile_rows or ''}"
+                got = fused_weighted_scores(q, corpus, w, m, plan=p)
+                err = (got[:, :N_REAL] - want[:, :N_REAL]).abs().max().item()
+                check(err <= TOL_FP32, f"K1 {row['corpus']} B={b} on {name}: |kernel-plain| {err}")
+                row[f"{name}_err"] = err
+                row[f"{name}_ms"] = device_ms(
+                    lambda: fused_weighted_scores(q, corpus, w, m, plan=p), reps)
+            rows.append(row)
+            print("K1 threshold " + json.dumps(row), flush=True)
+    return rows
 
 
 def bound_ms(moved_bytes: float, ops: float, kind: str):
@@ -569,7 +629,7 @@ async def serve_and_query(cfg, engine_probe):
     device = {
         "requests": len(QUERIES), "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / wall_ms,
-        "k1_ms": sum(ms for key, ms, _ in kernels if "fused_score_kernel" in key),
+        "k1_ms": sum(ms for key, ms, _ in kernels if "fused_score" in key),
         "top": [{"kernel": key[:80], "ms": ms, "count": n} for key, ms, n in kernels[:8]],
     }
     return latencies, launches, responses, stages, device, certified
@@ -631,7 +691,9 @@ def slice_phase(corpus):
     from rag_icd10_tpu_torch.models.encoder import TextEncoder
     from rag_icd10_tpu_torch.models.tokenizer import WordPieceTokenizer
     from rag_icd10_tpu_torch.ops.flat_topk import weighted_scores_reference
-    from rag_icd10_tpu_torch.ops.fused_score import fused_search, fused_weighted_scores
+    from rag_icd10_tpu_torch.ops.fused_score import (
+        fused_score_plan, fused_search, fused_weighted_scores, sm_count,
+    )
 
     db_dir = ROOT / "build" / "chip_smoke"
     db_dir.mkdir(parents=True, exist_ok=True)
@@ -695,11 +757,12 @@ def slice_phase(corpus):
         bound, bound_by = score_bound_ms(b, n, DIM, 4, "fp32")
         found["main"] = {
             "B": b, "N": n, "D": DIM,
+            "path": fused_score_plan(b, n, DIM, corpus_t.dtype, True,
+                                     sm_count(corpus_t.device.index or 0)).path,
             "max_abs_err": (scores[:, :N_REAL] - plain[:, :N_REAL]).abs().max().item(),
-            "ms": time_ms(lambda: fused_weighted_scores(q, corpus_t, w, m)),
-            "plain_ms": time_ms(lambda: weighted_scores_reference(q, corpus_t, w, m)),
-            "library_ms": time_ms(
-                lambda: torch.matmul(q, corpus_t.T).mul_(w).add_(m)),
+            **k1_times(lambda: fused_weighted_scores(q, corpus_t, w, m),
+                       lambda: weighted_scores_reference(q, corpus_t, w, m),
+                       lambda: torch.matmul(q, corpus_t.T).mul_(w).add_(m)),
             "bound_ms": bound, "bound_by": bound_by,
         }
         batch8 = [t for t, _ in QUERIES]
@@ -823,7 +886,7 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     corpus = synthetic_corpus(N_REAL, seed=0)
-    sweep, sweeps = kernel_phase(corpus.level_weights((1.2, 1.0, 0.8)))
+    sweep, k1_threshold, sweeps = kernel_phase(corpus.level_weights((1.2, 1.0, 0.8)))
     sweeps["K1"] = sweep
     print("K34 threshold rows " + json.dumps(sweeps.pop("threshold")), flush=True)
     main_path, e2e = slice_phase(corpus)
@@ -849,8 +912,11 @@ def main() -> int:
             "launches": row["launches"],
             **{key: row[key] for key in
                ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            **{key: row[key] for key in ("device_ms", "host_ms", "library_device_ms")
+               if key in row},
             "shape": {key: row[key] for key in ("B", "N", "D", "k", "path") if key in row},
             **({"main_batches": row["batches"]} if "batches" in row else {}),
+            **({"threshold": k1_threshold} if kid == "K1" else {}),
             "sweep": sweeps[kid],
         })
     print("e2e " + json.dumps(e2e), flush=True)

@@ -23,7 +23,7 @@ Exactness is certified per query, as in the JAX package: every row of an
 unfetched chunk scores at most the mc-th chunk maximum plus a
 scan-dependent epsilon. Padding rows fold to zero (score 0 in pass 1,
 which only overestimates a partly padded chunk's bound) and fully padded
-chunks are masked. fp32 scans still carry ``EPS_FP32_DOT``, because pass
+chunks are masked. fp32 scans still carry ``eps_fp32_dot(d)``, because pass
 1 scores folded rows, dot(q, w*c), while pass 2 scores dot(q, c)*w, and
 the two roundings differ. bf16 and int8 scans widen the bound by the
 exact build-time quantization residual (Cauchy-Schwarz:
@@ -48,9 +48,18 @@ import numpy as np
 import torch
 
 from . import cuda_build
-from .fused_score import fused_search
+from .flat_topk import ieee_fp32
+from .fused_score import (  # the "stream" layout K1 and K3 share
+    BLOCK_SMEM_BYTES,
+    STREAM_GROUP,
+    STREAM_RING_BYTES,
+    fused_search,
+    pow2_tile,
+    sm_count,
+    stream_blocks,
+)
 from .quantized import quantize_rows
-from .rerank import EPS_HIGH_DOT
+from .rerank import eps_high_dot
 
 CHUNK = 128  # corpus rows per chunk
 _launch_lock = threading.Lock()
@@ -60,13 +69,21 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-# fp32 dot rounding gap between pass 1 (weight-folded rows) and pass 2
-# (raw dot x weight): both are fp32 roundings of the same real value, and
-# any fp32 sum of d <= 768 products, in any summation order (the kernels'
-# sequential fmaf order, cuBLAS's blocked order), errs by at most about
-# (d + 1) * 2^-24 * ||q|| * ||c|| = 4.6e-5; doubled for the two conventions
-# that is 9.2e-5 < 1e-4. The JAX package's value holds unchanged.
+# The floor of ``eps_fp32_dot``: the JAX package's value, which covers
+# every d <= 768.
 EPS_FP32_DOT = 1e-4
+
+
+def eps_fp32_dot(d: int) -> float:
+    """fp32 dot rounding gap between pass 1 (weight-folded rows) and pass 2
+    (raw dot x weight), for D = d, per unit of ||q|| * ||c||: both are fp32
+    roundings of the same real value, and any fp32 sum of d products, in
+    any summation order (the kernels' sequential fmaf order, cuBLAS's
+    blocked order), errs by at most about (d + 1) * 2^-24 * ||q|| * ||c||;
+    doubled for the two conventions, 2 (d + 1) 2^-24: 9.2e-5 at d = 768,
+    1.83e-4 at d = 1536. Floored at EPS_FP32_DOT, so d <= 768 keeps the
+    JAX package's 1e-4."""
+    return max(EPS_FP32_DOT, 2 * (d + 1) * 2.0 ** -24)
 
 
 def eps_tc_dot(d: int) -> float:
@@ -114,20 +131,6 @@ _SCAN_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int
 #: queries); for fp32 "stream" at 16 beats "simt" at 17. The kernel is
 #: built for these tiles only.
 STREAM_MAX_B = {torch.float32: 16, torch.bfloat16: 2, torch.int8: 0}
-#: rows per group: the "stream" path splits the rows between its blocks in
-#: whole groups (stream::GROUP in csrc/chunk_max.cu)
-STREAM_GROUP = 32
-#: resident "stream" blocks per SM where the shared memory allows
-#: (__launch_bounds__(256, 2) in chunk_max.cu)
-STREAM_BLOCKS_PER_SM = 2
-#: a "stream" block's shared memory besides its fp32 query block: 8 warps'
-#: rings of 4 stages x 2 KB (stream::launch in chunk_max.cu)
-STREAM_RING_BYTES = 64 * 1024
-#: an H100 SM's shared memory, the most one block may take of it, and what
-#: the card reserves per resident block (CUDA guide, compute capability 9.0)
-SM_SMEM_BYTES = 228 * 1024
-BLOCK_SMEM_BYTES = 227 * 1024
-BLOCK_RESERVED_SMEM = 1024
 _PATHS = {"stream": 0, "mma": 1, "simt": 2}
 
 
@@ -160,11 +163,6 @@ class ChunkMaxPlan:
         ]
 
 
-def _pow2_tile(b: int, smallest: int) -> int:
-    """The smallest power of two, at least ``smallest``, that holds b."""
-    return max(smallest, 1 << (b - 1).bit_length())
-
-
 def chunk_max_plan(b: int, n: int, d: int, dtype, sm_count: int) -> ChunkMaxPlan:
     """Pick the chunk-max path for B queries over N rows (N % 128 == 0) of
     D columns in a store of ``dtype`` (a torch dtype or
@@ -176,24 +174,18 @@ def chunk_max_plan(b: int, n: int, d: int, dtype, sm_count: int) -> ChunkMaxPlan
     dtype = _SCAN_DTYPES.get(dtype, dtype)
     if dtype not in _SCAN_DTYPES.values():
         raise TypeError(f"corpus dtype {dtype}: float32, bfloat16 or int8")
-    smem = STREAM_RING_BYTES + _pow2_tile(b, 1) * d * 4
-    if b <= STREAM_MAX_B[dtype] and smem <= BLOCK_SMEM_BYTES:
-        per_sm = min(STREAM_BLOCKS_PER_SM, SM_SMEM_BYTES // (smem + BLOCK_RESERVED_SMEM))
-        return ChunkMaxPlan("stream", n, blocks=min(per_sm * sm_count, n // STREAM_GROUP))
+    blocks = stream_blocks(b, d, n // STREAM_GROUP, sm_count)
+    if b <= STREAM_MAX_B[dtype] and blocks:
+        return ChunkMaxPlan("stream", n, blocks=blocks)
     if dtype == torch.float32:
         return ChunkMaxPlan("simt", n)
-    return ChunkMaxPlan("mma", n, tile_rows=min(128, _pow2_tile(b, 16)))
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+    return ChunkMaxPlan("mma", n, tile_rows=min(128, pow2_tile(b, 16)))
 
 
 def _plan_for(queries: torch.Tensor, folded: torch.Tensor) -> ChunkMaxPlan:
     n, d = folded.shape
     return chunk_max_plan(
-        queries.shape[0], n, d, folded.dtype, _sm_count(folded.device.index or 0)
+        queries.shape[0], n, d, folded.dtype, sm_count(folded.device.index or 0)
     )
 
 
@@ -209,13 +201,13 @@ def chunk_maxima_reference(
     max over each 128-column chunk. An fp32 F is scored in IEEE fp32
     (TF32 off); bf16 and int8 score bf16(q) against the exactly widened
     values with fp32 sums (int8 then times its row scale)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
     b = queries.shape[0]
     n = folded.shape[0]
     q = queries.to(torch.float32)
     if folded.dtype != torch.float32:
         q = q.to(torch.bfloat16).to(torch.float32)
-    s = torch.matmul(q, folded.to(torch.float32).T)
+    with ieee_fp32():
+        s = torch.matmul(q, folded.to(torch.float32).T)
     if folded.dtype == torch.int8:
         s = s * scales[None, :]
     return s.view(b, n // CHUNK, CHUNK).amax(dim=2)
@@ -307,13 +299,13 @@ def gather_rescore_reference(
 ) -> torch.Tensor:
     """Plain version of ``gather_rescore``: gather the chunks' rows, then
     one batched fp32 matrix-vector product (TF32 off)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
     b, mc = chunk_ids.shape
     n, d = corpus.shape
     rows = corpus.view(n // CHUNK, CHUNK, d)[chunk_ids.long()]
     rows = rows.view(b, mc * CHUNK, d)
     q = queries.to(torch.float32)[:, :, None]
-    return torch.bmm(rows, q).squeeze(2)
+    with ieee_fp32():
+        return torch.bmm(rows, q).squeeze(2)
 
 
 @functools.cache
@@ -507,14 +499,14 @@ def certificate_eps(
     may exceed its chunk's measured maximum, for D = d. ``path`` is the
     kernel path pass 1 ran: "mma" accumulated on the tensor cores and
     takes ``eps_tc_dot(d)``; every other path, and the plain version,
-    EPS_FP32_DOT."""
-    dot = eps_tc_dot(d) if path == "mma" else EPS_FP32_DOT
+    ``eps_fp32_dot(d)``; the ``xla_high`` scan ``eps_high_dot(d)``."""
+    dot = eps_tc_dot(d) if path == "mma" else eps_fp32_dot(d)
     if dtype in (torch.bfloat16, torch.int8):
         # Cauchy-Schwarz on the measured quantization residual, plus the
         # query's bf16 rounding and the fp32 accumulation gap
         return resid_max + (EPS_BF16_VEC + dot) * bound_scale
     if scan == "xla_high":
-        return EPS_HIGH_DOT * bound_scale
+        return eps_high_dot(d) * bound_scale
     return dot * bound_scale
 
 

@@ -12,16 +12,44 @@ what it computes on CPU tensors.
 
 Numerics: scores fp32. A float32 matmul on the GPU may run in TF32
 (about three decimal digits) when ``torch.backends.cuda.matmul.allow_tf32``
-is on; the reference turns it off so fp32 products are IEEE fp32, the
-counterpart of the JAX package's ``Precision.HIGHEST``.
+is on; the reference turns it off around its matmul (``ieee_fp32``) so
+fp32 products are IEEE fp32, the counterpart of the JAX package's
+``Precision.HIGHEST``, and leaves the process's setting as it found it.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+_tf32_lock = threading.Lock()
+_tf32_users = 0
+_tf32_saved = False
+
+
+@contextlib.contextmanager
+def ieee_fp32():
+    """TF32 off for the matmuls inside; the process's
+    ``torch.backends.cuda.matmul.allow_tf32`` is restored when the last
+    concurrent user leaves, so threads that overlap never see it back on
+    while one of them is still inside."""
+    global _tf32_users, _tf32_saved
+    with _tf32_lock:
+        if _tf32_users == 0:
+            _tf32_saved = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _tf32_users += 1
+    try:
+        yield
+    finally:
+        with _tf32_lock:
+            _tf32_users -= 1
+            if _tf32_users == 0:
+                torch.backends.cuda.matmul.allow_tf32 = _tf32_saved
 
 
 def pad_corpus(
@@ -59,12 +87,12 @@ def weighted_scores_reference(
     in fp32, summed in fp32. ``exact=False`` rounds both operands to bf16
     before the product: the one-bf16-pass mode (JAX ``Precision.DEFAULT``).
     """
-    torch.backends.cuda.matmul.allow_tf32 = False  # IEEE fp32 products
     q = queries.to(corpus.dtype)
     c = corpus
     if not exact:
         q, c = q.to(torch.bfloat16), c.to(torch.bfloat16)
-    scores = torch.matmul(q.float(), c.float().T)
+    with ieee_fp32():
+        scores = torch.matmul(q.float(), c.float().T)
     scores = scores * weights[None, :].float()
     if mask is not None:
         scores = scores + mask[None, :].float()

@@ -8,6 +8,9 @@ Python re-weighting loop (reference: services/milvus_service.py:271-316).
 
 - ``fused_weighted_scores`` (K1, ``csrc/fused_score.cu``) writes the
   (B, N) scores; ``fused_search`` takes ``torch.topk`` of them.
+  ``fused_score_plan`` picks one kernel path per (B, D, dtype): "stream"
+  for an fp32 corpus up to 16 queries, "mma" (tensor cores) for a bf16
+  corpus, "tile" for an fp32 corpus above 16.
 - ``streaming_candidates`` (K2, ``csrc/slot_stream.cu``) keeps the top-S
   of each contiguous row range instead, so the (B, N) scores never reach
   device memory; ``streaming_topk`` selects the top-k from its candidates
@@ -26,7 +29,8 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
-from typing import Tuple
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,6 +38,58 @@ from . import cuda_build
 from .flat_topk import weighted_scores_reference
 
 _launch_lock = threading.Lock()
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+# ---------------------------------------------------------------------------
+# The "stream" layout of K1 and K3 (csrc/fused_score.cu, csrc/chunk_max.cu):
+# 256-thread blocks, each a contiguous range of whole 32-row groups, with a
+# warp-private cp.async ring and the query block in shared memory.
+# ---------------------------------------------------------------------------
+
+#: rows per group: "stream" splits the rows between its blocks in whole
+#: groups (stream::GROUP in both sources)
+STREAM_GROUP = 32
+#: resident "stream" blocks per SM where the shared memory allows
+#: (__launch_bounds__(256, 2))
+STREAM_BLOCKS_PER_SM = 2
+#: a "stream" block's shared memory besides its fp32 query block: 8 warps'
+#: rings of 4 stages x 2 KB
+STREAM_RING_BYTES = 64 * 1024
+#: an H100 SM's shared memory, the most one block may take of it, and what
+#: the card reserves per resident block (CUDA guide, compute capability 9.0)
+SM_SMEM_BYTES = 228 * 1024
+BLOCK_SMEM_BYTES = 227 * 1024
+BLOCK_RESERVED_SMEM = 1024
+
+
+def pow2_tile(b: int, smallest: int) -> int:
+    """The smallest power of two, at least ``smallest``, that holds b."""
+    return max(smallest, 1 << (b - 1).bit_length())
+
+
+def stream_blocks(b: int, d: int, groups: int, sms: int) -> int:
+    """Blocks of a "stream" launch for B queries of D columns over
+    ``groups`` row groups on ``sms`` SMs: min(blocks per SM * sms, groups),
+    so that all are resident at once, 2 per SM where two blocks' shared
+    memory fits in an SM, else 1; 0 where one block's query block (B
+    padded to a power of two, fp32) and ring exceed a block's shared
+    memory."""
+    smem = STREAM_RING_BYTES + pow2_tile(b, 1) * d * 4
+    if smem > BLOCK_SMEM_BYTES:
+        return 0
+    per_sm = min(STREAM_BLOCKS_PER_SM, SM_SMEM_BYTES // (smem + BLOCK_RESERVED_SMEM))
+    return min(per_sm * sms, groups)
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """SMs of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
 
 #: largest k the streaming method selects in-kernel; a larger k takes the
 #: materialized path, as in the JAX package (pallas_score.py:138)
@@ -68,10 +124,53 @@ def _check_cuda_inputs(queries, corpus, weights, mask):
     return q, w, m
 
 
+#: largest batch of K1's "stream" path over an fp32 corpus; above it
+#: "tile". K3's measured threshold (chunk_stream.STREAM_MAX_B), confirmed
+#: for K1 by chip_smoke.py's threshold rows (PERF.md).
+SCORE_STREAM_MAX_B = 16
+_SCORE_PATHS = {"stream": 0, "mma": 1, "tile": 2}
+
+
+@dataclass(frozen=True)
+class ScorePlan:
+    """The one K1 path ``fused_weighted_scores`` launches.
+
+    path:         "stream" (fp32 corpus, B <= SCORE_STREAM_MAX_B and the
+                  query block fits in shared memory), "mma" (bf16 corpus,
+                  every B) or "tile" (fp32 corpus otherwise)
+    round_inputs: products of bf16-rounded q and C (a bf16 corpus, or
+                  ``exact=False``), else IEEE fp32
+    blocks:       "stream": blocks, each a contiguous range of whole
+                  STREAM_GROUP-row groups (the last one may be ragged)
+    tile_rows:    "mma": queries per block, 16, 32, 64 or 128
+    """
+
+    path: str
+    round_inputs: bool
+    blocks: int = 0
+    tile_rows: int = 0
+
+
+def fused_score_plan(
+    b: int, n: int, d: int, dtype, exact: bool, sm_count: int
+) -> ScorePlan:
+    """Pick K1's path for B queries over N rows of D columns in a corpus
+    of ``dtype`` (torch.float32 or torch.bfloat16) on a card with
+    ``sm_count`` SMs. ``exact`` picks the arithmetic, not the path."""
+    if dtype == torch.bfloat16:
+        return ScorePlan("mma", True, tile_rows=min(128, pow2_tile(b, 16)))
+    if dtype != torch.float32:
+        raise TypeError(f"corpus dtype {dtype}: float32 or bfloat16")
+    blocks = stream_blocks(b, d, _cdiv(n, STREAM_GROUP), sm_count)
+    if b <= SCORE_STREAM_MAX_B and blocks:
+        return ScorePlan("stream", not exact, blocks=blocks)
+    return ScorePlan("tile", not exact)
+
+
 @functools.cache
 def _kernel():
     fn = cuda_build.load("fused_score").fused_score_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -82,12 +181,16 @@ def fused_weighted_scores(
     weights: torch.Tensor,
     mask: torch.Tensor,
     exact: bool = True,
+    plan: Optional[ScorePlan] = None,
 ) -> torch.Tensor:
     """(B, D) x (N, D) -> (B, N) fp32 weighted+masked scores.
 
     ``corpus`` is fp32 or bf16; ``exact=True`` keeps fp32 inputs exact,
     ``exact=False`` rounds them to bf16 (one bf16 pass, ~3e-3 relative
     score error). A bf16 corpus always scores bf16 x bf16 products in fp32.
+    On a CUDA tensor it launches ``plan``'s path, by default
+    ``fused_score_plan``'s; a plan the kernel cannot run (a path for the
+    other dtype, "stream" above its batch) raises.
     ``fused_weighted_scores.launches`` counts kernel launches.
     """
     b, d = queries.shape
@@ -102,18 +205,31 @@ def fused_weighted_scores(
     if corpus.device.type == "cpu":
         return weighted_scores_reference(queries, corpus, weights, mask, exact=exact)
     q, w, m = _check_cuda_inputs(queries, corpus, weights, mask)
-    out = torch.empty((b, n), dtype=torch.float32, device=corpus.device)
+    dev = corpus.device
+    out = torch.empty((b, n), dtype=torch.float32, device=dev)
     if b == 0 or n == 0:
         return out
-    bf16 = corpus.dtype == torch.bfloat16
-    with torch.cuda.device(corpus.device):
+    plan = plan or fused_score_plan(b, n, d, corpus.dtype, exact, sm_count(dev.index or 0))
+    if plan.round_inputs != (corpus.dtype == torch.bfloat16 or not exact):
+        raise ValueError(f"{plan} does not compute exact={exact} over {corpus.dtype}")
+    scratch = q  # unused unless "mma": the queries rounded to bf16, padded
+    if plan.path == "mma":
+        bm = plan.tile_rows
+        scratch = torch.empty(
+            (_cdiv(b, bm) * bm, _cdiv(d, 32) * 32), dtype=torch.bfloat16, device=dev
+        )
+    with torch.cuda.device(dev):
         err = _kernel()(
             q.data_ptr(), corpus.data_ptr(), w.data_ptr(), m.data_ptr(),
-            out.data_ptr(), b, n, d, int(bf16), int(bf16 or not exact),
+            out.data_ptr(), scratch.data_ptr(), b, n, d,
+            int(corpus.dtype == torch.bfloat16), int(plan.round_inputs),
+            _SCORE_PATHS[plan.path], plan.blocks, plan.tile_rows,
             torch.cuda.current_stream().cuda_stream,
         )
     if err:
-        raise RuntimeError(f"fused_score kernel launch failed: CUDA error {err}")
+        raise RuntimeError(
+            f"fused_score kernel ({plan.path}) launch failed: CUDA error {err}"
+        )
     with _launch_lock:
         fused_weighted_scores.launches += 1
     return out

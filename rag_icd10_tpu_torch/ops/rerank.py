@@ -29,11 +29,20 @@ EPS_BF16_DOT = 4.2e-3
 # The JAX package's Precision.HIGH scan (bf16x3) has no PyTorch spelling:
 # torch.set_float32_matmul_precision("high") is single-pass TF32 on CUDA
 # (relative error about 2^-11), far outside this bound. The port's
-# "xla_high" chunkstream engine therefore runs IEEE fp32 (TF32 off), whose
-# error is the fp32 accumulation alone, (d + 1) * u <= 6.1e-5 at d = 1024,
-# and it keeps this widening unchanged: sound, and slightly conservative.
-# 3xTF32 comes with the ``fast`` method.
+# "xla_high" chunkstream engine therefore runs IEEE fp32 (TF32 off). This
+# is the JAX package's widening and the floor of ``eps_high_dot``.
 EPS_HIGH_DOT = 8.0e-5
+
+
+def eps_high_dot(d: int) -> float:
+    """The ``xla_high`` widening for D = d, per unit of ||q|| * ||c||. Its
+    pass 1 is an IEEE fp32 dot of the folded row, (d + 1) u away from the
+    real value, and the exact re-score it is compared with is another fp32
+    dot, (d + 1) u away again: 2 (d + 1) u in all (u = 2^-24), 9.2e-5 at
+    d = 768, 1.83e-4 at d = 1536. Floored at EPS_HIGH_DOT, which covers it
+    up to d = 670. A 3xTF32 pass (the ``fast`` method) will need its own
+    term."""
+    return max(EPS_HIGH_DOT, 2 * (d + 1) * 2.0 ** -24)
 
 
 def bf16_scan_bound(

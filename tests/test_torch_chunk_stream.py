@@ -35,7 +35,9 @@ import torch
 from rag_icd10_tpu.ops import chunk_stream as jcs
 from rag_icd10_tpu.ops.quantized import quantize_rows as jquantize
 from rag_icd10_tpu_torch.ops import chunk_stream as tcs
+from rag_icd10_tpu_torch.ops.fused_score import fused_search
 from rag_icd10_tpu_torch.ops.quantized import quantize_rows
+from rag_icd10_tpu_torch.ops.rerank import EPS_HIGH_DOT
 
 torch.set_num_threads(2)  # the suite runs several test processes at once
 
@@ -351,6 +353,43 @@ def test_eps_tc_dot_covers_truncating_accumulation(d):
     assert tcs.eps_tc_dot(d + 16) > eps
     if d == 768:
         assert eps > tcs.EPS_FP32_DOT
+
+
+@pytest.mark.parametrize("d", [64, 768, 1536, 4096])
+def test_fp32_and_high_terms_grow_with_d(d):
+    """The fp32 and xla_high terms cover two round-to-nearest fp32 dots of
+    d products, 2 (d + 1) 2^-24, at every d; they keep the JAX package's
+    constants as floors (1e-4 up to d = 768, 8e-5 up to 670), and
+    certificate_eps passes d through to them."""
+    two_sums = 2 * (d + 1) * 2.0 ** -24
+    fp32, high = tcs.eps_fp32_dot(d), tcs.eps_high_dot(d)
+    assert fp32 >= two_sums and high >= two_sums
+    assert fp32 >= tcs.EPS_FP32_DOT and high >= EPS_HIGH_DOT
+    assert (fp32 == tcs.EPS_FP32_DOT) == (d <= 768)
+    assert (high == EPS_HIGH_DOT) == (d <= 670)
+    resid, bscale = 0.01, 1.2
+    assert tcs.certificate_eps(torch.float32, "pallas", "stream", resid, bscale, d) == fp32 * bscale
+    assert tcs.certificate_eps(torch.float32, "xla", None, resid, bscale, d) == fp32 * bscale
+    assert tcs.certificate_eps(torch.float32, "xla_high", None, resid, bscale, d) == high * bscale
+    assert tcs.certificate_eps(torch.bfloat16, "pallas", "stream", resid, bscale, d) == (
+        resid + (tcs.EPS_BF16_VEC + fp32) * bscale)
+
+
+@pytest.mark.parametrize("scan", ["pallas", "xla", "xla_high"])
+def test_search_at_d1536_certifies_and_is_exact(scan):
+    """D = 1536 over an fp32 store: the certificate, widened for d, still
+    certifies every query with mc = 26 of 32 chunks, and the result is
+    the exact top-k."""
+    vecs, w, q = make_problem(n=4096, d=1536, b=8, seed=15)
+    _, tstore = _stores(vecs, w, "fp32")
+    vals, idx, cert = tcs.search(tstore, t(q), k=10, scan=scan)
+    assert bool(cert.all())
+    evals, eidx = brute(q, vecs, w, 10)
+    np.testing.assert_array_equal(idx.numpy(), eidx)
+    np.testing.assert_allclose(vals.numpy(), evals, atol=TOL)
+    fvals, fidx = fused_search(t(q), tstore.corpus, tstore.weights, tstore.mask, k=10)
+    np.testing.assert_array_equal(idx.numpy(), fidx.numpy())
+    np.testing.assert_allclose(vals.numpy(), fvals.numpy(), atol=TOL)
 
 
 @pytest.mark.parametrize("path", [None, "stream", "mma"])

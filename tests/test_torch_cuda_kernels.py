@@ -11,11 +11,15 @@ Tolerance 5e-5: the kernels sum D products sequentially in fp32 (fmaf),
 the plain versions in cuBLAS's order; for unit vectors at D = 768 the
 worst-case difference of two fp32 sums is below that. Order statistics
 (a range's candidates and bound, a chunk's maximum) move by no more than
-the scores they are taken from, so they share the tolerance. The chunk
-maxima's "mma" path sums exact bf16 products on the tensor cores; on
-random unit vectors its accumulation errs far below 5e-5 (its worst case,
-eps_tc_dot, has a test of its own).
+the scores they are taken from, so they share the tolerance. The "mma"
+paths of the chunk maxima and of K1 (a bf16 corpus) sum exact bf16
+products on the tensor cores; on random unit vectors their accumulation
+errs far below 5e-5 (the worst case, eps_tc_dot, has tests of its own).
+At D = 1536 the worst case of two fp32 sums, 2 (d + 1) 2^-24 = 1.8e-4, is
+above 5e-5, but random unit vectors err far below it, as at D = 768.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -24,11 +28,14 @@ import torch
 from rag_icd10_tpu_torch.ops import chunk_stream
 from rag_icd10_tpu_torch.ops.flat_topk import weighted_scores_reference
 from rag_icd10_tpu_torch.ops.fused_score import (
+    ScorePlan,
+    fused_score_plan,
     fused_search,
     fused_weighted_scores,
     range_rows,
     slot_count,
     slot_depth,
+    sm_count,
     streaming_candidates,
     streaming_candidates_reference,
     streaming_topk,
@@ -90,6 +97,131 @@ def test_fused_search_topk_matches_plain(cuda):
     # ids equal up to ties: each returned id scores the value it claims
     picked = torch.gather(want, 1, idx.long())
     torch.testing.assert_close(picked, vals, atol=5e-5, rtol=0)
+
+
+K1_B = [1, 2, 4, 8, 16, 17, 64, 256]
+K1_D = [72, 768, 1536]
+K1_N = [1000, 2500, 40960]  # ragged (not whole 32- or 128-row tiles), served
+
+
+@functools.cache
+def _k1_data(n, d):
+    """256 queries and an (n, d) corpus on the card, made once per shape;
+    a test takes the first B queries."""
+    return tuple(_problem(256, n, d, seed=n + d, dev=torch.device("cuda")))
+
+
+def _k1_check(q, c, w, m, exact, plan=None):
+    """One K1 call (the plan's path, or ``plan`` forced) against the plain
+    version; the padding rows stay masked and the counter moves once."""
+    n = c.shape[0]
+    before = fused_weighted_scores.launches
+    got = fused_weighted_scores(q, c, w, m, exact=exact, plan=plan)
+    torch.cuda.synchronize()
+    assert fused_weighted_scores.launches == before + 1
+    want = weighted_scores_reference(q, c, w, m, exact=exact)
+    assert got.shape == want.shape == (q.shape[0], n)
+    torch.testing.assert_close(got[:, : n - 7], want[:, : n - 7], atol=TOL, rtol=0)
+    assert bool((got[:, n - 7:] < -1e29).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", K1_N)
+@pytest.mark.parametrize("d", K1_D)
+@pytest.mark.parametrize("b", K1_B)
+@pytest.mark.parametrize("corpus_dtype,exact", MODES)
+def test_k1_planned_paths_match_plain(cuda, corpus_dtype, exact, b, d, n):
+    """The plan's path at every B, D and N: "stream" (fp32, B <= 16; N
+    not a whole number of 32-row groups), "tile" (fp32 above), "mma"
+    (bf16 corpus; N not a whole number of 128-row tiles, D = 72 a tail
+    inside a 32-column stage)."""
+    q, c, w, m = _k1_data(n, d)
+    q, c = q[:b].contiguous(), c.to(corpus_dtype)
+    plan = fused_score_plan(b, n, d, corpus_dtype, exact, sm_count(cuda.index or 0))
+    if corpus_dtype == torch.bfloat16:
+        assert plan.path == "mma"
+    else:
+        assert plan.path == ("stream" if b <= 16 else "tile")
+    _k1_check(q, c, w, m, exact)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", K1_N)
+@pytest.mark.parametrize("d", K1_D)
+@pytest.mark.parametrize("b", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("exact", [True, False])
+def test_k1_tile_forced_below_threshold(cuda, exact, b, d, n):
+    """"tile" forced where the plan takes "stream" (the threshold rows of
+    chip_smoke.py time both)."""
+    q, c, w, m = _k1_data(n, d)
+    _k1_check(q[:b].contiguous(), c, w, m, exact, plan=ScorePlan("tile", not exact))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", K1_N)
+@pytest.mark.parametrize("b", [2, 16])
+@pytest.mark.parametrize("blocks", [1, 7])
+def test_k1_stream_forced_block_counts(cuda, blocks, b, n):
+    """"stream" with fewer blocks than the plan's: one block walks every
+    group, 7 blocks take uneven ranges (the last group ragged)."""
+    q, c, w, m = _k1_data(n, 768)
+    _k1_check(q[:b].contiguous(), c, w, m, True, plan=ScorePlan("stream", False, blocks=blocks))
+
+
+@pytest.mark.gpu
+def test_k1_rejects_plans_it_cannot_run(cuda):
+    """No fallback: a plan the kernel cannot run raises, and nothing
+    launches."""
+    q, c, w, m = _k1_data(1000, 72)
+    q17 = q[:17].contiguous()
+    before = fused_weighted_scores.launches
+    bad = [
+        (q17, c, True, ScorePlan("stream", False, blocks=8)),  # B above 16
+        (q17[:2], c.bfloat16(), True, ScorePlan("stream", True, blocks=8)),  # bf16 corpus
+        (q17[:2], c, False, ScorePlan("mma", True, tile_rows=16)),  # fp32 corpus
+        (q17[:2], c, True, ScorePlan("stream", False, blocks=0)),
+        (q17[:2], c, True, ScorePlan("stream", False, blocks=33)),  # 32 groups
+        (q17[:2], c.bfloat16(), True, ScorePlan("mma", True, tile_rows=8)),
+    ]
+    for qq, cc, exact, plan in bad:
+        with pytest.raises(RuntimeError):
+            fused_weighted_scores(qq, cc, w, m, exact=exact, plan=plan)
+    with pytest.raises(ValueError):  # the plan's arithmetic is not the call's
+        fused_weighted_scores(q17, c, w, m, plan=ScorePlan("tile", True))
+    assert fused_weighted_scores.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [2, 17, 256])
+@pytest.mark.parametrize("corpus_dtype", [torch.float32, torch.bfloat16])
+def test_k1_topk_through_fused_search(cuda, b, corpus_dtype):
+    """The top-k of every path through fused_search equals the plain
+    top-k up to ties, and never picks a padding row."""
+    q, c, w, m = _k1_data(40960, 768)
+    q, c = q[:b].contiguous(), c.to(corpus_dtype)
+    vals, idx = fused_search(q, c, w, m, k=20)
+    want = weighted_scores_reference(q, c, w, m)
+    torch.testing.assert_close(vals, torch.topk(want, 20, dim=1).values, atol=TOL, rtol=0)
+    torch.testing.assert_close(torch.gather(want, 1, idx.long()), vals, atol=TOL, rtol=0)
+    assert int(idx.max()) < 40960 - 7
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [2, 64, 256])
+@pytest.mark.parametrize("d", [768, 1536])
+def test_k1_mma_within_tensor_core_eps(cuda, b, d):
+    """K1's "mma" scores lie within eps_tc_dot(d) * ||q|| * ||c|| * max w
+    of the fp64 scores of the same bf16 inputs: the tensor-core
+    accumulator may truncate."""
+    q, c, w, m = _k1_data(40960, d)
+    q, c = q[:b].contiguous(), c.bfloat16()
+    got = fused_weighted_scores(q, c, w, m)
+    q64, c64 = q.bfloat16().double(), c.double()
+    want = (q64 @ c64.T) * w.double()
+    scale = q64.norm(dim=1, keepdim=True) * c64.norm(dim=1).max() * w.max().double()
+    real = slice(0, 40960 - 7)
+    err = ((got.double() - want)[:, real].abs() / scale).max().item()
+    assert err <= chunk_stream.eps_tc_dot(d), err
 
 
 @pytest.mark.gpu

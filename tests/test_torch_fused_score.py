@@ -10,6 +10,8 @@ orders over D <= 128 unit-vector products); bf16 corpus atol/rtol 2e-2.
 The kernel itself runs only on a card: tests/test_torch_cuda_kernels.py.
 """
 
+import sys
+import threading
 from unittest import mock
 
 import jax.experimental.pallas as pl
@@ -21,8 +23,13 @@ import torch
 from rag_icd10_tpu.ops.flat_topk import flat_search_jax
 from rag_icd10_tpu.ops.flat_topk import pad_corpus as pad_corpus_jax
 from rag_icd10_tpu.ops.pallas_score import fused_weighted_scores as fused_jax
-from rag_icd10_tpu_torch.ops import flat_topk
-from rag_icd10_tpu_torch.ops.fused_score import fused_search, fused_weighted_scores
+from rag_icd10_tpu_torch.ops import chunk_stream, flat_topk
+from rag_icd10_tpu_torch.ops.fused_score import (
+    ScorePlan,
+    fused_score_plan,
+    fused_search,
+    fused_weighted_scores,
+)
 
 torch.set_num_threads(2)  # the suite runs several test processes at once
 
@@ -150,3 +157,101 @@ def test_unported_and_bad_inputs_raise():
         fused_weighted_scores(t(q[:, :32]), t(cp), t(wp), t(m))
     with pytest.raises(ValueError):
         fused_weighted_scores(t(q), t(cp), t(wp[:-1]), t(m))
+
+
+@pytest.mark.parametrize("b", [1, 2, 16, 17, 64, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("exact", [True, False])
+def test_fused_score_plan_routing(b, dtype, exact):
+    """One K1 path per (B, dtype) at the served shape: a bf16 corpus takes
+    "mma" at every B (16- to 128-query tiles, one bf16 pass); an fp32
+    corpus "stream" up to 16 queries (2 blocks on each of 132 SMs) and
+    "tile" above, in either mode."""
+    plan = fused_score_plan(b, 40960, 768, dtype, exact, sm_count=132)
+    if dtype == torch.bfloat16:
+        tile = 16 if b <= 16 else 32 if b <= 32 else 64 if b <= 64 else 128
+        assert plan == ScorePlan("mma", True, tile_rows=tile)
+    elif b <= 16:
+        assert plan == ScorePlan("stream", not exact, blocks=264)
+    else:
+        assert plan == ScorePlan("tile", not exact)
+
+
+@pytest.mark.parametrize("b,n,d,path,blocks", [
+    (16, 40960, 768, "stream", 264),   # 112 KB a block: 2 per SM
+    (2, 40960, 1536, "stream", 264),
+    (16, 40960, 1536, "stream", 132),  # 160 KB a block: 1 per SM
+    (16, 40960, 2608, "stream", 132),  # 227 KB, the most a block may take
+    (16, 40960, 2616, "tile", 0),      # the query block does not fit
+    (1, 1000, 72, "stream", 32),       # ragged N: ceil(1000 / 32) groups
+    (8, 2500, 1536, "stream", 79),
+])
+def test_fused_score_plan_fits_shared_memory(b, n, d, path, blocks):
+    """"stream" keeps 2 blocks per SM where two blocks' rings and fp32
+    query blocks fit in an SM, 1 where only one fits, never more blocks
+    than 32-row groups (the last one ragged), and sends a D whose query
+    block exceeds a block's shared memory to "tile"."""
+    plan = fused_score_plan(b, n, d, torch.float32, True, sm_count=132)
+    assert (plan.path, plan.blocks) == (path, blocks)
+
+
+def test_fused_score_plan_rejects_other_dtypes():
+    with pytest.raises(TypeError):
+        fused_score_plan(2, 40960, 768, torch.int8, True, sm_count=132)
+
+
+@pytest.mark.parametrize("flag", [True, False])
+def test_plain_versions_leave_the_tf32_flag(flag):
+    """The plain versions turn TF32 off only around their own matmul and
+    restore the process's setting, also when the guard nests."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = flag
+    try:
+        q, c, w = make_problem(b=4, n=1024, d=64)
+        q, c, w = t(q), t(c), t(w)
+        flat_topk.weighted_scores_reference(q, c, w)
+        flat_topk.weighted_scores_reference(q, c, w, exact=False)
+        flat_topk.weighted_scores_reference(q, c.to(torch.bfloat16), w)
+        chunk_stream.chunk_maxima_reference(q, c * w[:, None])
+        ids = torch.tensor([[0, 3]] * 4, dtype=torch.int32)
+        chunk_stream.gather_rescore_reference(q, c, ids)
+        assert torch.backends.cuda.matmul.allow_tf32 is flag
+        with flat_topk.ieee_fp32():
+            assert torch.backends.cuda.matmul.allow_tf32 is False
+            with flat_topk.ieee_fp32():
+                assert torch.backends.cuda.matmul.allow_tf32 is False
+            assert torch.backends.cuda.matmul.allow_tf32 is False
+        assert torch.backends.cuda.matmul.allow_tf32 is flag
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_ieee_fp32_guard_under_threads():
+    """Threads that overlap inside the guard never see TF32 back on (a
+    plain save and restore per call would turn it on under another
+    thread's matmul), and the flag is restored after the last leaves."""
+    saved_flag, saved_switch = torch.backends.cuda.matmul.allow_tf32, sys.getswitchinterval()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    sys.setswitchinterval(1e-6)
+    seen_on = []
+    start = threading.Barrier(16)
+
+    def work():
+        start.wait(timeout=60)
+        for _ in range(2000):
+            with flat_topk.ieee_fp32():
+                if torch.backends.cuda.matmul.allow_tf32:
+                    seen_on.append(1)
+
+    try:
+        threads = [threading.Thread(target=work) for _ in range(16)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+        assert not any(th.is_alive() for th in threads)
+        assert not seen_on
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        sys.setswitchinterval(saved_switch)
+        torch.backends.cuda.matmul.allow_tf32 = saved_flag
