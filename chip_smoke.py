@@ -18,13 +18,20 @@
    each held against the plain version; K2-K5 at that shape and at
    N = 1,048,576 (rows made
    on the card from a seeded generator) for B in {8, 64, 256} and
-   k in {10, 100}, K3/K4 also at B in {2, 16, 17}. Each K3/K4 row names
+   k in {10, 100}, K3/K4 also at B in {2, 16, 17}, K5 also at B in
+   {2, 4, 16, 17, 32}. Each K3/K4 row names
    the path chunk_max_plan took ("stream", "mma" with its TFLOP/s, or
    "simt"), the host time per call and the card time with the calls
    queued behind a sleeping kernel (device_ms, beside the library's).
    The threshold rows time bf16 at B in {1, 2} on "stream" and "mma" and
    fp32 at B in {8, 16} on "stream" and "simt" (the plan's path and the
-   other one forced), each held against the plain version.
+   other one forced), each held against the plain version. Each K5 row
+   names the path rescore_plan took ("pairs" or "grouped"), times it on
+   the card, back to back and on the host beside the library's two
+   spellings (gather + bmm; dense matmul + gather of the columns), and
+   times both paths forced, each held against the plain version; one
+   more K5 row re-scores a batch of 64 near-identical queries (k = 100),
+   whose pairs nearly all share chunks.
 4. Slice phase: embeds a 40,474-row synthetic ICD corpus with a
    full-width BERT-base encoder (12 layers, 768 hidden, 12 heads, 3072
    intermediate, vocab 21128, bf16, seeded random weights), saves the
@@ -150,6 +157,20 @@ def device_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_split(fn, reps: int = 10) -> dict:
+    """Card time per call of each kernel fn launches (torch.profiler)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.rsplit("::", 1)[-1][:40]: e.self_device_time_total / 1e3 / reps
+            for e in prof.key_averages() if e.self_device_time_total > 0}
 
 
 def k1_times(fn, plain, library, reps: int = 20) -> dict:
@@ -403,32 +424,87 @@ def k34_measure(q, store, reps):
 
 
 def k5_measure(q, store, cm, k, reps):
-    """K5 on the chunks a chunkstream search of top-k would fetch.
-    Library: the same gather plus one bmm (what the plain version does)."""
+    """K5 on the chunks a chunkstream search of top-k would fetch, on the
+    path rescore_plan takes, on the card (device_ms), back to back (ms)
+    and on the host; then each path forced ("pairs" with the plan's group
+    of rows, "grouped": <name>_ms on the card, <name>_err), each held
+    against the plain version; on "grouped", each kernel's card time
+    (kernels_ms: the sort's two kernels, the memset, the tiles). Library:
+    the same gather plus one bmm (what the plain version does), and the
+    dense route, one matmul over every row and a gather of the selected
+    columns (library_dense_*)."""
     import torch
 
-    from rag_icd10_tpu_torch.ops.chunk_stream import gather_rescore, gather_rescore_reference
+    from rag_icd10_tpu_torch.ops.chunk_stream import (
+        RESCORE_TILE_ROWS, RescorePlan, gather_rescore, gather_rescore_reference,
+        pairs_group_rows, rescore_plan,
+    )
+    from rag_icd10_tpu_torch.ops.fused_score import sm_count
 
     b, d = q.shape
-    n = store.corpus.shape[0]
-    mc = min(max(2 * k, k + 16), n // 128)
+    corpus = store.corpus
+    n = corpus.shape[0]
+    mc = min(max(2 * k, k + 16), cm.shape[1])
     ids = torch.topk(cm, mc, dim=1).indices.to(torch.int32)
-    got = gather_rescore(q, store.corpus, ids)
-    want = gather_rescore_reference(q, store.corpus, ids)
+    sms = sm_count(corpus.device.index or 0)
+    plan = rescore_plan(b, mc, n // 128, d, sms)
+    got = gather_rescore(q, corpus, ids)
+    want = gather_rescore_reference(q, corpus, ids)
+    cols = (ids.long()[:, :, None] * 128
+            + torch.arange(128, device=ids.device)).reshape(b, mc * 128)
+    dense = lambda: torch.gather(torch.matmul(q, corpus.T), 1, cols)  # noqa: E731
     torch.cuda.synchronize()
     err = max_err(got, want)
     check(err <= TOL_FP32, f"K5 B={b} mc={mc}: |kernel-plain| {err}")
+    check(max_err(dense(), want) <= TOL_FP32, f"K5 B={b} mc={mc}: dense library route")
     distinct = int(torch.unique(ids).numel())  # chunks this batch must read
     moved = distinct * 128 * d * 4 + b * d * 4 + b * mc * 4 + b * mc * 128 * 4
     bound, bound_by = bound_ms(moved, 2.0 * b * mc * 128 * d, "fp32")
-    plain = lambda: gather_rescore_reference(q, store.corpus, ids)  # noqa: E731
-    return {
+    fn = lambda: gather_rescore(q, corpus, ids)  # noqa: E731
+    plain = lambda: gather_rescore_reference(q, corpus, ids)  # noqa: E731
+    row = {
         "B": b, "N": n, "D": d, "k": k, "mc": mc, "distinct_chunks": distinct,
+        "path": plan.path, "group_rows": plan.group_rows,
+        "tile_rows": RESCORE_TILE_ROWS if plan.path == "grouped" else 0,
         "max_abs_err": err,
-        "ms": time_ms(lambda: gather_rescore(q, store.corpus, ids), reps),
+        "ms": time_ms(fn, reps), "device_ms": device_ms(fn, reps),
+        "host_ms": host_ms(fn, reps),
         "plain_ms": time_ms(plain, reps), "library_ms": time_ms(plain, reps),
+        "library_device_ms": device_ms(plain, reps),
+        "library_dense_ms": time_ms(dense, reps),
+        "library_dense_device_ms": device_ms(dense, reps),
         "bound_ms": bound, "bound_by": bound_by,
     }
+    forced = {  # each path forced, on the card
+        "pairs": RescorePlan("pairs", group_rows=pairs_group_rows(b * mc, sms)),
+        "grouped": RescorePlan("grouped"),
+    }
+    if plan.path == "grouped":  # the sort's share of the path
+        row["kernels_ms"] = kernel_split(fn)
+    for name, p in forced.items():
+        e = max_err(gather_rescore(q, corpus, ids, plan=p), want)
+        check(e <= TOL_FP32, f"K5 B={b} mc={mc} on {name}: |kernel-plain| {e}")
+        row[f"{name}_err"] = e
+        row[f"{name}_ms"] = device_ms(lambda: gather_rescore(q, corpus, ids, plan=p), reps)
+    print("K5 " + json.dumps(row), flush=True)
+    return row
+
+
+def k5_shared_row(corpus, store, n_real, gen, reps, b: int = 64, k: int = 100):
+    """K5 on a coalesced batch of similar diagnoses: B queries made as one
+    corpus row plus small seeded noise, so that nearly every pair hits the
+    same mc chunks (the most pairs one chunk can have)."""
+    import torch
+
+    from rag_icd10_tpu_torch.ops.chunk_stream import chunk_maxima
+
+    row = int(torch.randint(0, n_real, (1,), generator=gen, device=corpus.device))
+    q = corpus[row] + 0.002 * torch.randn((b, corpus.shape[1]), generator=gen,
+                                          device=corpus.device)
+    q /= q.norm(dim=1, keepdim=True)
+    out = k5_measure(q, store, chunk_maxima(q, store.folded), k, reps)
+    out["shared_from_row"] = row
+    return out
 
 
 def threshold_rows(stores, gen, reps):
@@ -465,12 +541,15 @@ def threshold_rows(stores, gen, reps):
 
 def certified_sweep(corpus, w, m, n_real, seed, reps):
     """K3/K4 against their plain versions for B in {2, 8, 16, 17, 64, 256}
-    (both sides of the plan's threshold at 16), K2 and K5 for B in
-    {8, 64, 256} and k in {10, 100}, over one corpus. Returns {kernel:
-    [rows]}; the rows are also in the kernels line's "sweep"."""
+    (both sides of the plan's threshold at 16), K2 for B in {8, 64, 256}
+    and K5 for B in {2, 4, 8, 16, 17, 32, 64, 256}, each with k in {10,
+    100}, and K5's shared-chunks row, over one corpus. Every K5 row also
+    times each path forced (the evidence for RESCORE_GROUPED_MIN_SAVED).
+    Returns {kernel: [rows]}; the rows are also in the kernels line's
+    "sweep"."""
     import torch
 
-    from rag_icd10_tpu_torch.ops.chunk_stream import build_device
+    from rag_icd10_tpu_torch.ops.chunk_stream import build_device, chunk_maxima
 
     stores = {dt: build_device(corpus, w, scan_dtype=dt, n_real=n_real)
               for dt in ("fp32", "bf16", "int8")}
@@ -484,11 +563,16 @@ def certified_sweep(corpus, w, m, n_real, seed, reps):
             out["K4" if dt == "int8" else "K3"].append(row)
             if dt == "fp32":
                 cm32 = cm
-        if b not in (8, 64, 256):
-            continue
         for k in (10, 100):
-            row = k2_measure(q, corpus, w, m, k, reps)
-            out["K2"].append(row)
+            if b in (8, 64, 256):
+                out["K2"].append(k2_measure(q, corpus, w, m, k, reps))
+            out["K5"].append(k5_measure(q, stores["fp32"], cm32, k, reps))
+    out["K5"].append(k5_shared_row(corpus, stores["fp32"], n_real, gen, reps))
+    for b in (4, 32):  # K5 only: the rest of the batches around its threshold
+        q = torch.randn((b, corpus.shape[1]), generator=gen, device=corpus.device)
+        q /= q.norm(dim=1, keepdim=True)
+        cm32 = chunk_maxima(q, stores["fp32"].folded)
+        for k in (10, 100):
             out["K5"].append(k5_measure(q, stores["fp32"], cm32, k, reps))
     del stores
     torch.cuda.empty_cache()
@@ -912,9 +996,12 @@ def main() -> int:
             "launches": row["launches"],
             **{key: row[key] for key in
                ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-            **{key: row[key] for key in ("device_ms", "host_ms", "library_device_ms")
+            **{key: row[key] for key in ("device_ms", "host_ms", "library_device_ms",
+                                         "library_dense_ms", "library_dense_device_ms")
                if key in row},
-            "shape": {key: row[key] for key in ("B", "N", "D", "k", "path") if key in row},
+            "shape": {key: row[key] for key in
+                      ("B", "N", "D", "k", "mc", "path", "group_rows", "tile_rows")
+                      if key in row},
             **({"main_batches": row["batches"]} if "batches" in row else {}),
             **({"threshold": k1_threshold} if kid == "K1" else {}),
             "sweep": sweeps[kid],

@@ -18,6 +18,10 @@ Two passes:
 2. **Block gather + exact re-score** (K5; ``csrc/gather_rescore.cu``):
    the top ``mc`` chunks of each query are read as contiguous 128-row
    blocks of the raw fp32 corpus and scored in IEEE fp32.
+   ``rescore_plan`` picks "pairs" where few chunks are shared (a block
+   per pair and group of a chunk's rows, so a few pairs fill the card) and
+   "grouped" where queries share chunks (the pairs sorted by chunk on
+   the card, each chunk read once per tile of up to 32 of its queries).
 
 Exactness is certified per query, as in the JAX package: every row of an
 unfetched chunk scores at most the mc-th chunk maximum plus a
@@ -40,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import threading
 from dataclasses import dataclass
 from typing import Optional, Tuple, Union
@@ -298,31 +303,129 @@ def gather_rescore_reference(
     queries: torch.Tensor, corpus: torch.Tensor, chunk_ids: torch.Tensor
 ) -> torch.Tensor:
     """Plain version of ``gather_rescore``: gather the chunks' rows, then
-    one batched fp32 matrix-vector product (TF32 off)."""
+    one batched fp32 matrix-vector product (TF32 off); an id outside
+    [0, N/128) scores NaN."""
     b, mc = chunk_ids.shape
     n, d = corpus.shape
-    rows = corpus.view(n // CHUNK, CHUNK, d)[chunk_ids.long()]
+    nc = n // CHUNK
+    ids = chunk_ids.long()
+    valid = (ids >= 0) & (ids < nc)
+    rows = corpus.view(nc, CHUNK, d)[torch.where(valid, ids, 0)]
     rows = rows.view(b, mc * CHUNK, d)
     q = queries.to(torch.float32)[:, :, None]
     with ieee_fp32():
-        return torch.bmm(rows, q).squeeze(2)
+        out = torch.bmm(rows, q).view(b, mc, CHUNK)
+    return out.masked_fill_(~valid[:, :, None], float("nan")).view(b, mc * CHUNK)
+
+
+#: "grouped" takes the pairs sorted by chunk, so that a tile of up to
+#: RESCORE_TILE_ROWS of a chunk's queries reads the chunk once; "pairs"
+#: reads a chunk once for every pair. "grouped" pays a sort and fewer,
+#: larger blocks, so it wins once it saves enough chunk reads: B*mc pairs
+#: less the distinct chunks they hit, at least RESCORE_GROUPED_MIN_SAVED
+#: (the plan estimates the distinct chunks as uniform random ids would hit
+#: them, ``expected_chunks``; queries that share chunks save more).
+#: Measured on an H100 (chip_smoke.py's K5 rows, both paths forced;
+#: PERF.md): "pairs" still won at 203 reads saved (B = 17, k = 10
+#: over 40,960 rows: 0.0484 against 0.0533 ms), "grouped" won from 506
+#: (B = 4, k = 100: 0.0603 against 0.0989) and drew level at 552 (B = 16,
+#: k = 100 over 1M rows). A batch size alone does not decide: at 64
+#: queries with k = 10 over 1M rows "pairs" wins, at 4 queries with
+#: k = 100 over 40,960 rows "grouped".
+RESCORE_GROUPED_MIN_SAVED = 384
+#: queries per "grouped" tile (grouped::QT in csrc/gather_rescore.cu)
+RESCORE_TILE_ROWS = 32
+#: "pairs" takes the largest group of a chunk's rows per block (32, 16 or
+#: 8) that still gives this many blocks per SM
+RESCORE_BLOCKS_PER_SM = 2
+#: chunks up to which the "grouped" sort counts each block's pairs in
+#: shared memory (grouped::LOCAL_CHUNKS in csrc/gather_rescore.cu); above,
+#: with global atomics
+RESCORE_LOCAL_CHUNKS = 8192
+_RESCORE_PATHS = {"pairs": 0, "grouped": 1}
+
+
+def _pairs_smem(group_rows: int, d: int) -> int:
+    """Shared memory of a "pairs" block: group_rows / 4 warps' rings of 4
+    stages x 2 KB, then the fp32 query row."""
+    return group_rows // 4 * 4 * 2048 + d * 4
+
+
+def pairs_group_rows(pairs: int, sm_count: int) -> int:
+    """Rows of a chunk per "pairs" block for this many pairs: the largest
+    of 32, 16 and 8 that gives RESCORE_BLOCKS_PER_SM blocks per SM, else 8."""
+    rows = 32
+    while rows > 8 and pairs * (CHUNK // rows) < RESCORE_BLOCKS_PER_SM * sm_count:
+        rows //= 2
+    return rows
+
+
+def expected_chunks(pairs: int, nc: int) -> float:
+    """Distinct chunks that ``pairs`` uniform random ids over nc chunks hit,
+    on average: nc (1 - (1 - 1/nc)^pairs)."""
+    return nc * -math.expm1(pairs * math.log1p(-1.0 / nc)) if nc > 1 else min(nc, pairs)
+
+
+def tile_bound(pairs: int, nc: int) -> int:
+    """"grouped": the most tiles ``pairs`` pairs over nc chunks can make,
+    the grid of its tile kernel: every chunk's last tile may be partial,
+    so sum ceil(n_c / QT) <= ceil(pairs / QT) + min(nc, pairs)."""
+    return _cdiv(pairs, RESCORE_TILE_ROWS) + min(nc, pairs)
+
+
+@dataclass(frozen=True)
+class RescorePlan:
+    """The one K5 path ``gather_rescore`` launches for a (B, mc, nc, D).
+
+    path:       "pairs" (fewer than RESCORE_GROUPED_MIN_SAVED chunk reads to
+                save, and the query row fits in shared memory), else
+                "grouped" (tiles of RESCORE_TILE_ROWS queries)
+    group_rows: "pairs": rows of a chunk per block, 8, 16 or 32
+    """
+
+    path: str
+    group_rows: int = 0
+
+
+def rescore_plan(b: int, mc: int, nc: int, d: int, sm_count: int) -> RescorePlan:
+    """Pick K5's path for B queries of D columns, each re-scoring mc of nc
+    chunks, on a card with ``sm_count`` SMs: "grouped" where it saves at
+    least RESCORE_GROUPED_MIN_SAVED chunk reads (or the query row does not
+    fit in a "pairs" block's shared memory), else "pairs" with the largest
+    group of rows that gives RESCORE_BLOCKS_PER_SM blocks per SM."""
+    pairs = b * mc
+    rows = pairs_group_rows(pairs, sm_count)
+    if (pairs - expected_chunks(pairs, nc) < RESCORE_GROUPED_MIN_SAVED
+            and _pairs_smem(rows, d) <= BLOCK_SMEM_BYTES):
+        return RescorePlan("pairs", group_rows=rows)
+    return RescorePlan("grouped")
 
 
 @functools.cache
 def _rescore_kernel():
     fn = cuda_build.load("gather_rescore").gather_rescore_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    )
     fn.restype = ctypes.c_int
     return fn
 
 
 def gather_rescore(
-    queries: torch.Tensor, corpus: torch.Tensor, chunk_ids: torch.Tensor
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    chunk_ids: torch.Tensor,
+    plan: Optional[RescorePlan] = None,
 ) -> torch.Tensor:
     """(B, mc * 128) IEEE fp32 raw scores of the selected chunks' rows:
-    column ``i * 128 + r`` is row ``chunk_ids[b, i] * 128 + r``. The raw
-    (not weight-folded) fp32 corpus, N % 128 == 0; any B.
-    ``gather_rescore.launches`` counts kernel launches."""
+    column ``i * 128 + r`` is row ``chunk_ids[b, i] * 128 + r``; an id
+    outside [0, N/128) scores NaN. The raw (not weight-folded) fp32
+    corpus, N % 128 == 0; any B. On a CUDA tensor it launches ``plan``'s
+    path, by default ``rescore_plan``'s; a plan the kernel cannot run
+    raises. ``gather_rescore.launches`` counts calls of the kernel's entry
+    point, one per call: "pairs" runs one kernel, "grouped" a memset and
+    three (the count and the scatter of the pairs by chunk, then the
+    tiles)."""
     b, d = queries.shape
     n, d2 = corpus.shape
     if d != d2:
@@ -348,16 +451,34 @@ def gather_rescore(
     if q.data_ptr() % 16 or corpus.data_ptr() % 16:
         raise ValueError("queries and corpus must be 16-byte aligned")
     mc = ids.shape[1]
-    out = torch.empty((b, mc * CHUNK), dtype=torch.float32, device=corpus.device)
+    nc = n // CHUNK
+    dev = corpus.device
+    out = torch.empty((b, mc * CHUNK), dtype=torch.float32, device=dev)
     if b == 0 or mc == 0:
         return out
-    with torch.cuda.device(corpus.device):
+    plan = plan or rescore_plan(b, mc, nc, d, sm_count(dev.index or 0))
+    if plan.path not in _RESCORE_PATHS:
+        raise ValueError(f"{plan}: path 'pairs' or 'grouped'")
+    grouped = plan.path == "grouped"
+    scratch = out  # unused unless "grouped"
+    if grouped:
+        # an int4 descriptor per tile of the bound, the sorted pairs, nc
+        # counters, the count of finished sort blocks, the tile count
+        pairs = b * mc
+        scratch = torch.empty(
+            4 * tile_bound(pairs, nc) + pairs + nc + 2, dtype=torch.int32, device=dev
+        )
+    with torch.cuda.device(dev):
         err = _rescore_kernel()(
             q.data_ptr(), corpus.data_ptr(), ids.data_ptr(), out.data_ptr(),
-            b, n // CHUNK, d, mc, torch.cuda.current_stream().cuda_stream,
+            scratch.data_ptr(), scratch.numel() if grouped else 0, b, nc, d, mc,
+            _RESCORE_PATHS[plan.path], RESCORE_TILE_ROWS if grouped else plan.group_rows,
+            torch.cuda.current_stream().cuda_stream,
         )
     if err:
-        raise RuntimeError(f"gather_rescore kernel launch failed: CUDA error {err}")
+        raise RuntimeError(
+            f"gather_rescore kernel ({plan.path}) launch failed: CUDA error {err}"
+        )
     with _launch_lock:
         gather_rescore.launches += 1
     return out

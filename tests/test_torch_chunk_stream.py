@@ -435,3 +435,108 @@ def test_bad_inputs_and_no_launch_on_cpu(problem):
         tcs.gather_rescore(t(q), t(vecs[:1000]), torch.zeros((8, 2), dtype=torch.int32))
     assert tcs.chunk_maxima.launches == tcs.chunk_maxima.launches_int8 == 0
     assert tcs.gather_rescore.launches == 0
+
+
+@pytest.mark.parametrize("b", [1, 2, 3, 8, 15, 16, 17, 63, 64, 256])
+@pytest.mark.parametrize("k", [10, 20, 100])
+@pytest.mark.parametrize("nc", [320, 8192])
+def test_rescore_plan_table(b, k, nc):
+    """K5's plan at the served corpus shape and at 1M rows (D = 768):
+    "grouped" exactly where B*mc pairs
+    save RESCORE_GROUPED_MIN_SAVED reads of the distinct chunks uniform
+    random ids would hit; "pairs" elsewhere."""
+    mc = max(2 * k, k + 16)
+    plan = tcs.rescore_plan(b, mc, nc, 768, sm_count=132)
+    saved = b * mc - tcs.expected_chunks(b * mc, nc)
+    if saved >= tcs.RESCORE_GROUPED_MIN_SAVED:
+        assert plan == tcs.RescorePlan("grouped")
+    else:
+        assert plan == tcs.RescorePlan("pairs", group_rows=tcs.pairs_group_rows(b * mc, 132))
+
+
+@pytest.mark.parametrize("pairs,nc", [(1, 1), (5, 1), (80, 320), (6656, 8192), (51200, 320)])
+def test_expected_chunks_matches_random_ids(pairs, nc):
+    """The plan's estimate of the distinct chunks B*mc pairs read is the
+    mean over uniform random ids (within 3% over 200 draws)."""
+    rng = np.random.default_rng(pairs)
+    seen = np.mean([len(np.unique(rng.integers(0, nc, pairs))) for _ in range(200)])
+    assert tcs.expected_chunks(pairs, nc) == pytest.approx(seen, rel=0.03)
+
+
+def test_rescore_plan_at_the_served_shapes():
+    """The main path's batch (B = 2, k = 20) and a small batch over 1M
+    rows re-read almost no chunk: "pairs"; 16 queries of k = 100 over the
+    served corpus share most chunks: "grouped"."""
+    assert tcs.rescore_plan(2, 40, 320, 768, 132) == tcs.RescorePlan("pairs", group_rows=32)
+    assert tcs.rescore_plan(64, 26, 8192, 768, 132).path == "pairs"
+    assert tcs.rescore_plan(16, 200, 320, 768, 132).path == "grouped"
+
+
+@pytest.mark.parametrize("b,mc,rows", [
+    (2, 40, 32),   # the main shape: 80 pairs x 4 groups = 320 blocks
+    (8, 26, 32),
+    (1, 40, 16),   # 160 blocks of 32 rows would not give 2 per SM; 320 of 16
+    (1, 26, 8),    # 104 and 208 would not; 416 of 8
+    (1, 1, 8),     # 16 blocks: the smallest group is the most there is
+])
+def test_pairs_plan_fills_the_card(b, mc, rows):
+    """"pairs" takes the largest group of a chunk's rows per block that
+    still gives RESCORE_BLOCKS_PER_SM blocks per SM, down to 8 rows."""
+    plan = tcs.rescore_plan(b, mc, 320, 768, sm_count=132)
+    assert (plan.path, plan.group_rows) == ("pairs", rows)
+    blocks = b * mc * 128 // rows
+    assert blocks >= tcs.RESCORE_BLOCKS_PER_SM * 132 or rows == 8
+
+
+@pytest.mark.parametrize("d,path", [(41728, "pairs"), (41732, "grouped")])
+def test_pairs_plan_fits_shared_memory(d, path):
+    """A "pairs" block holds its warps' rings (8 warps x 4 stages x 2 KB
+    for 32 rows) and the fp32 query row; a D whose row does not fit goes
+    to "grouped", which streams D in slices, so every D has a path."""
+    plan = tcs.rescore_plan(2, 40, 320, d, sm_count=132)
+    assert plan.path == path
+    if path == "pairs":
+        assert tcs._pairs_smem(plan.group_rows, d) <= tcs.BLOCK_SMEM_BYTES
+
+
+def _tiles(ids, nc, qt):
+    """The tiles the kernel's counting sort makes: ceil(n_c / QT) for each
+    chunk c of n_c pairs (ids outside [0, nc) are not grouped)."""
+    ids = ids[(ids >= 0) & (ids < nc)]
+    counts = np.bincount(ids, minlength=nc)
+    return int(np.sum(-(-counts // qt)))
+
+
+@pytest.mark.parametrize("pairs,nc", [
+    (1, 1), (7, 320), (80, 320), (320, 320), (321, 320), (400, 3),
+    (6656, 8192), (51200, 320), (51200, 8192), (51200, 20000),
+])
+def test_tile_bound_covers_worst_case(pairs, nc):
+    """The grid of "grouped" covers every tile list: the most tiles P
+    pairs over nc chunks make is m + floor((P - m) / QT), m = min(nc, P)
+    (every pair in its own chunk, the rest in whole tiles, each chunk one
+    partial tile), within ceil(P / QT) + m; random ids stay inside too."""
+    qt = tcs.RESCORE_TILE_ROWS
+    bound = tcs.tile_bound(pairs, nc)
+    m = min(nc, pairs)
+    worst = np.concatenate([np.arange(m), np.zeros(pairs - m, np.int64)])
+    assert _tiles(worst, nc, qt) == m + (pairs - m) // qt <= bound
+    assert bound == -(-pairs // qt) + m
+    rng = np.random.default_rng(pairs)
+    for ids in (rng.integers(0, nc, pairs), rng.integers(-2, nc + 2, pairs),
+                np.full(pairs, nc - 1)):
+        assert _tiles(ids, nc, qt) <= bound
+
+
+def test_gather_rescore_out_of_range_is_nan_on_cpu():
+    """On the CPU any plan computes the plain version: an id outside
+    [0, N/128) scores NaN, the others their rows' fp32 dots."""
+    vecs, _, q = make_problem(n=1024, d=64, b=3, seed=2)
+    ids = np.array([[0, 8, -1], [7, 7, 3], [100, 2, 0]], np.int32)
+    bad = (ids < 0) | (ids >= 8)
+    want = np.einsum("bd,bird->bir", q, vecs.reshape(8, 128, 64)[np.where(bad, 0, ids)])
+    for plan in (None, tcs.RescorePlan("pairs", group_rows=32), tcs.RescorePlan("grouped")):
+        got = tcs.gather_rescore(t(q), t(vecs), t(ids), plan=plan).view(3, 3, 128).numpy()
+        assert np.isnan(got[bad]).all()
+        np.testing.assert_allclose(got[~bad], want[~bad], atol=TOL)
+    assert tcs.gather_rescore.launches == 0

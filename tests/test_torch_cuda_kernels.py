@@ -473,18 +473,108 @@ def test_mma_chunk_max_within_tensor_core_eps(cuda, b, d, dtype):
     assert err <= chunk_stream.eps_tc_dot(d), err
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,nc,d,mc", [(3, 8, 72, 5), (8, 320, 768, 26), (130, 24, 768, 20)])
-def test_gather_rescore_matches_plain(cuda, b, nc, d, mc):
-    q, c, _, _ = _problem(b, nc * 128, d, seed=mc, dev=cuda)
-    gen = torch.Generator(device=cuda).manual_seed(b)
-    ids = torch.randint(0, nc, (b, mc), device=cuda, dtype=torch.int32, generator=gen)
+K5_PLANS = [
+    chunk_stream.RescorePlan("pairs", group_rows=32),
+    chunk_stream.RescorePlan("pairs", group_rows=16),
+    chunk_stream.RescorePlan("pairs", group_rows=8),
+    chunk_stream.RescorePlan("grouped"),
+]
+K5_NC = 300  # chunks of the test corpus: 38,400 rows
+
+
+@functools.cache
+def _k5_corpus(nc, d):
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    c = torch.randn((nc * 128, d), generator=gen, device="cuda")
+    return c / c.norm(dim=1, keepdim=True)
+
+
+def _k5_queries(b, d, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, d), generator=gen, device="cuda")
+    return q / q.norm(dim=1, keepdim=True)
+
+
+def _k5_check(q, c, ids, plan):
+    """K5 on ``plan`` against the plain version (8 queries at a time, so
+    the plain gather stays small), NaN where the plain version has NaN;
+    one counted launch."""
     before = chunk_stream.gather_rescore.launches
-    got = chunk_stream.gather_rescore(q, c, ids)
+    got = chunk_stream.gather_rescore(q, c, ids, plan=plan)
     torch.cuda.synchronize()
     assert chunk_stream.gather_rescore.launches == before + 1
-    want = chunk_stream.gather_rescore_reference(q, c, ids)
-    torch.testing.assert_close(got, want, atol=TOL, rtol=0)
+    want = torch.cat([chunk_stream.gather_rescore_reference(q[i : i + 8], c, ids[i : i + 8])
+                      for i in range(0, q.shape[0], 8)])
+    torch.testing.assert_close(got, want, atol=TOL, rtol=0, equal_nan=True)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", K5_PLANS, ids=lambda p: f"{p.path}{p.group_rows or ''}")
+@pytest.mark.parametrize("mc", [1, 26, 200])
+@pytest.mark.parametrize("d", [72, 768, 1536])
+@pytest.mark.parametrize("b", [1, 3, 17, 64, 130, 256])
+def test_gather_rescore_matches_plain(cuda, b, d, mc, plan):
+    """Both K5 paths, forced, against the plain version: D with a tail
+    shorter than a 32-column slice (72), the served width and twice it;
+    random ids, so chunks repeat within and across queries."""
+    c = _k5_corpus(K5_NC, d)
+    gen = torch.Generator(device=cuda).manual_seed(b * mc)
+    ids = torch.randint(0, K5_NC, (b, mc), device=cuda, dtype=torch.int32, generator=gen)
+    _k5_check(_k5_queries(b, d, seed=b), c, ids, plan)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", K5_PLANS, ids=lambda p: f"{p.path}{p.group_rows or ''}")
+@pytest.mark.parametrize("case", ["duplicates", "same_chunks", "large_nc", "out_of_range"])
+def test_gather_rescore_cases(cuda, case, plan):
+    """duplicates: ids repeat within a query's row; same_chunks: every
+    query selects the same 200 chunks (the most pairs a chunk can have,
+    several tiles each); large_nc: more chunks than the sort's shared
+    histogram holds (global atomics); out_of_range: ids below 0 and at or
+    past N/128 give NaN for their 128 scores, the rest stay exact."""
+    b, mc, d, nc = 130, 26, 768, K5_NC
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    if case == "duplicates":
+        ids = torch.randint(0, 4, (b, mc), device=cuda, dtype=torch.int32, generator=gen)
+    elif case == "same_chunks":
+        mc = 200
+        ids = torch.randperm(nc, device=cuda, generator=gen)[:mc].to(torch.int32).repeat(b, 1)
+    elif case == "large_nc":
+        d, nc = 8, chunk_stream.RESCORE_LOCAL_CHUNKS + 1000
+        ids = torch.randint(0, nc, (b, mc), device=cuda, dtype=torch.int32, generator=gen)
+    else:
+        ids = torch.randint(-3, nc + 3, (b, mc), device=cuda, dtype=torch.int32, generator=gen)
+        ids[0, :3] = torch.tensor([-1, nc, 2**31 - 1], dtype=torch.int32)
+    got = _k5_check(_k5_queries(b, d, seed=3), _k5_corpus(nc, d), ids, plan)
+    bad = ((ids < 0) | (ids >= nc))[:, :, None].expand(b, mc, 128).reshape(b, -1)
+    assert bool(torch.isnan(got[bad]).all()) and bool(torch.isfinite(got[~bad]).all())
+    if case == "out_of_range":
+        assert bool(bad.any())
+
+
+@pytest.mark.gpu
+def test_gather_rescore_rejects_plans_it_cannot_run(cuda):
+    """A path the wrapper does not know raises before the launch; a group
+    size the kernel was not built for, or a query row too wide for
+    "pairs"' shared memory, is refused by the entry point, and raises."""
+    q, c = _k5_queries(4, 64, seed=1), _k5_corpus(8, 64)
+    ids = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
+    before = chunk_stream.gather_rescore.launches
+    with pytest.raises(ValueError):
+        chunk_stream.gather_rescore(q, c, ids, plan=chunk_stream.RescorePlan("tile"))
+    with pytest.raises(RuntimeError):
+        chunk_stream.gather_rescore(q, c, ids, plan=chunk_stream.RescorePlan("pairs", group_rows=12))
+    wide = 60000  # 240 KB of query row
+    with pytest.raises(RuntimeError):
+        chunk_stream.gather_rescore(
+            _k5_queries(1, wide, seed=1), _k5_corpus(1, wide),
+            torch.zeros((1, 1), dtype=torch.int32, device=cuda),
+            plan=chunk_stream.RescorePlan("pairs", group_rows=8))
+    assert chunk_stream.gather_rescore.launches == before
+    # the plan sends that width to "grouped", which streams D in slices
+    _k5_check(_k5_queries(1, wide, seed=1), _k5_corpus(1, wide),
+              torch.zeros((1, 1), dtype=torch.int32, device=cuda), None)
 
 
 @pytest.mark.gpu
