@@ -48,7 +48,20 @@
    (their certificate counts are printed with the epsilon of the path
    taken and that of fp32 sums); K3/K4 also run at B = 16 and 17 on
    served embeddings.
-5. Prints one JSON line describing each kernel, and as the last line
+5. Every other search method and residency (the third slice): /query
+   with search_method "fast" (exact's candidates, K1 launched on every
+   request; certified fraction and redone batches), "sketch" and "hnsw"
+   (their screen and graph built first, timed; overlap with exact's
+   candidates); VectorStore.search at B in {8, 64} over the served rows
+   with int8 residency (INT8_RERANK device and host), host residency,
+   "sketch", "hnsw" and "fast", each with recall@k against exact and,
+   where the tier scores in exact fp32, its scores held against exact;
+   chunk_select_search in each scan precision (K1) and bf16_rerank_search
+   (K2, exact=False, k 20 and 100) against their plain versions; the int8
+   product on the card bit for bit against the CPU's int32 matmul; and
+   build_sketch over the N = 1,048,576 rows on the card, its chunked
+   screen against the one-scan screen.
+6. Prints one JSON line describing each kernel, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises: the script then exits non-zero. It also exits
@@ -76,7 +89,9 @@ N_REAL, DIM = 40474, 768
 TOL_FP32 = 5e-5  # sequential fp32 sums of 768 unit-vector products vs cuBLAS order
 TOL_BF16_VS_FP32 = 2e-2  # bf16 residency against the exact fp32 scores
 N_LARGE = 1 << 20  # the corpus scale the streaming and chunkstream methods exist for
-CERTIFIED_METHODS = ("streaming", "chunkstream")
+CERTIFIED_METHODS = ("streaming", "chunkstream", "fast")
+APPROX_METHODS = ("sketch", "hnsw")  # approximate selection, exact scores
+TIER_K = 20  # top_k 10 with the orchestrator's over-fetch of 2
 
 QUERIES = [  # (text, top_k): single- and multi-diagnosis, top_k 5 and 10
     ("急性胃肠炎", 5),
@@ -268,9 +283,10 @@ def kernel_phase(weights_np):
     torch.cuda.empty_cache()
     big = large_corpus()
     large = certified_sweep(*big, N_LARGE, seed=4, reps=3)
+    sketch_large = large_sketch_phase(big[0], big[1])
     del big
     torch.cuda.empty_cache()
-    return rows, threshold, {name: k25[name] + large[name] for name in k25}
+    return rows, threshold, {name: k25[name] + large[name] for name in k25}, sketch_large
 
 
 def k1_threshold_rows(corpus32, corpus16, w, m, gen, reps: int = 20):
@@ -591,6 +607,268 @@ def large_corpus(seed: int = 2):
     return c, w, torch.zeros(N_LARGE, device=DEVICE)
 
 
+def recall_at_k(got_rows, want_rows) -> float:
+    return statistics.mean(
+        len({h.id for h in g} & {h.id for h in w}) / max(1, len(w))
+        for g, w in zip(got_rows, want_rows))
+
+
+def exact_score_err(store, q_np, rows) -> float:
+    """max |served score - exact weighted score of the served row| (fp64)."""
+    import numpy as np
+
+    v = store._vectors
+    w = store.corpus.level_weights(store.config.level_weights)
+    err = 0.0
+    for qi, row in zip(q_np.astype(np.float64), rows):
+        for h in row:
+            err = max(err, abs(h.score - float(v[h.id].astype(np.float64) @ qi) * float(w[h.id])))
+    return err
+
+
+def wall_ms(fn, reps: int = 5) -> float:
+    """Host time per call of a search that ends on the host (its hits)."""
+    fn()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t) / reps * 1e3
+
+
+def tier_phase(base, queries):
+    """VectorStore.search over the served rows in every residency and tier
+    this slice serves, at each batch of ``queries`` ({B: tensor}) with
+    k = TIER_K: int8 residency with INT8_RERANK device and host, host
+    residency (the sketch screen), and on the fp32 store "sketch", "hnsw"
+    and "fast". Each against "exact": recall@k, and where the tier's
+    scores are exact fp32 (int8 host, host, sketch, hnsw, fast) the
+    largest gap to the exact weighted score; "fast" must give exact's
+    hits. Returns the rows and each store's device bytes."""
+    import dataclasses
+
+    import torch
+
+    from rag_icd10_tpu_torch.index.vector_store import VectorStore
+
+    tiers = {}
+    memory = {"float32": base.get_memory_usage()["device_vector_bytes"]}
+    for name, changes in (("int8_device", dict(device_dtype="int8", int8_rerank="device")),
+                          ("int8_host", dict(device_dtype="int8", int8_rerank="host")),
+                          ("host", dict(device_dtype="host"))):
+        store = VectorStore(dim=DIM, config=dataclasses.replace(base.config, **changes),
+                            device=DEVICE)
+        store.corpus, store._vectors = base.corpus, base._vectors
+        t = time.perf_counter()
+        store.load_collection()
+        torch.cuda.synchronize()
+        print(f"tier {name}: loaded in {time.perf_counter() - t:.2f} s", flush=True)
+        tiers[name] = (store, None)
+        memory[name] = store.get_memory_usage()["device_vector_bytes"]
+    for method in ("sketch", "hnsw", "fast"):
+        tiers[method] = (base, method)
+    rows = []
+    for b, q in queries.items():
+        q_np = q.cpu().numpy()
+        exact = base.search(q, TIER_K, method="exact")
+        exact_ms = wall_ms(lambda: base.search(q, TIER_K, method="exact"))
+        for name, (store, method) in tiers.items():
+            before = dict(store.get_collection_stats()["certificate"])
+            zero_launch_counts()
+            hits = store.search(q, TIER_K, method=method)
+            launches = launch_counts()
+            after = store.get_collection_stats()["certificate"]
+            row = {"tier": name, "B": b, "k": TIER_K, "recall_at_k": recall_at_k(hits, exact),
+                   "max_score_err_vs_exact": exact_score_err(base, q_np, hits),
+                   "launches": {key: n for key, n in launches.items() if n},
+                   "ms": wall_ms(lambda: store.search(q, TIER_K, method=method)),
+                   "exact_ms": exact_ms}
+            if name == "fast":
+                cert = {key: after[key] - before[key] for key in after}
+                row["certified_fraction"] = cert["certified"] / cert["queries"]
+                row["redos"] = cert["redos"]
+                check(launches["K1"] >= 1, f"fast B={b}: K1 launched {launches['K1']} times")
+                for g, e in zip(hits, exact):
+                    same_candidates([h.to_dict() for h in g], [h.to_dict() for h in e],
+                                    f"VectorStore fast B={b} vs exact")
+            if name.startswith("int8"):
+                check(launches["int8_mm"] >= 1, f"{name} B={b}: the int8 product ran on the card")
+            if name != "int8_device":  # the others score in exact fp32
+                check(row["max_score_err_vs_exact"] <= TOL_FP32,
+                      f"tier {name} B={b}: scores vs exact {row['max_score_err_vs_exact']}")
+            check(all(len(r) == TIER_K for r in hits), f"tier {name} B={b}: {TIER_K} hits a row")
+            rows.append(row)
+            print("tier " + json.dumps(row), flush=True)
+    for name, (store, _) in tiers.items():
+        if store is not base:
+            store.release_collection()
+    torch.cuda.empty_cache()
+    return rows, memory
+
+
+def search_kernel_checks(store, queries):
+    """K1 under chunk_select_search in each scan precision, and K2 under
+    bf16_rerank_search (exact=False) at k = TIER_K and 100 (m = 200 > 128),
+    over the served rows, each against its plain version (the same
+    selection over the kernel's plain version), with the launches of one
+    call; the int8 product on the card against the CPU's int32 matmul,
+    bit for bit."""
+    import torch
+
+    from rag_icd10_tpu_torch.ops.fused_score import fused_score_plan, sm_count
+    from rag_icd10_tpu_torch.ops.quantized import int8_matmul, int8_search, quantize_rows
+    from rag_icd10_tpu_torch.ops.rerank import (
+        bf16_rerank_search, bf16_rerank_search_reference, chunk_select_search,
+        chunk_select_search_reference,
+    )
+
+    dev = store._dev
+    c32, w, m = dev["corpus"], dev["weights"], dev["mask"]
+    c16 = c32.to(torch.bfloat16)
+    n = c32.shape[0]
+    sms = sm_count(c32.device.index or 0)
+    out = {"chunk_select": [], "bf16_rerank": [], "int8": []}
+
+    def compare(name, fn, plain, row):
+        zero_launch_counts()
+        gv, gi, gc = fn()
+        row["launches"] = launch_counts()
+        pv, pi, pc = plain()
+        torch.cuda.synchronize()
+        row["max_abs_err"] = max_err(gv, pv)
+        check(row["max_abs_err"] <= TOL_FP32, f"{name}: |kernel-plain| {row['max_abs_err']}")
+        for g_v, g_i, p_v, p_i in zip(gv, gi, pv, pi):
+            g = dict(zip(g_i.tolist(), g_v.tolist()))
+            p = dict(zip(p_i.tolist(), p_v.tolist()))
+            for j in g.keys() ^ p.keys():  # only ties at the k-th may differ
+                check(abs(g.get(j, p.get(j)) - float(p_v[-1])) <= TOL_FP32, f"{name}: id {j}")
+        check(torch.equal(gc, pc), f"{name}: certificates differ")
+        row["certified"] = float(gc.float().mean())
+        row["ms"] = time_ms(fn, 10)
+        row["plain_ms"] = time_ms(plain, 10)
+        print(f"{name} " + json.dumps(row), flush=True)
+        return row
+
+    for b, q in queries.items():
+        for precision in ("highest", "high", "bf16"):
+            scan = c16 if precision == "bf16" else c32
+            kw = dict(k=TIER_K, corpus_f32=c32, scan_precision=precision, guarantee=False,
+                      bound_scale=store._bound_scale)
+            row = {"precision": precision, "B": b, "N": n, "D": DIM, "k": TIER_K,
+                   "path": fused_score_plan(b, n, DIM, scan.dtype, True, sms).path}
+            out["chunk_select"].append(compare(
+                f"chunk_select {precision} B={b}",
+                lambda: chunk_select_search(q, scan, w, m, **kw),
+                lambda: chunk_select_search_reference(q, scan, w, m, **kw), row))
+            check(row["launches"]["K1"] == 1, f"chunk_select {precision}: one K1 launch")
+        for k in (TIER_K, 100):
+            kw = dict(k=k, guarantee=False, bound_scale=store._bound_scale)
+            row = {"B": b, "N": n, "D": DIM, "k": k, "m": max(2 * k, k + 8)}
+            out["bf16_rerank"].append(compare(
+                f"bf16_rerank B={b} k={k}",
+                lambda: bf16_rerank_search(q, c16, c32, w, m, **kw),
+                lambda: bf16_rerank_search_reference(q, c16, c32, w, m, **kw), row))
+            check(row["launches"]["K2"] == 1, f"bf16_rerank k={k}: one K2 launch")
+        qi, _ = quantize_rows(q)
+        ci, cs = quantize_rows(c32)
+        got = int8_matmul(qi, ci)
+        want = int8_matmul(qi.cpu(), ci.cpu())
+        check(torch.equal(got.cpu(), want), f"int8 product B={b}: card vs CPU int32")
+        args = (q, ci, cs, w, m)
+        gv, _ = int8_search(*args, k=TIER_K)
+        cv, _ = int8_search(*(t.cpu() for t in args), k=TIER_K)
+        check(torch.equal(gv.cpu(), cv), f"int8_search B={b}: card vs CPU values")
+        row = {"B": b, "N": n, "D": DIM, "bit_equal": True,
+               "int8_mm_ms": time_ms(lambda: int8_matmul(qi, ci), 10),
+               "int8_search_ms": time_ms(lambda: int8_search(*args, k=TIER_K), 10)}
+        out["int8"].append(row)
+        print("int8 " + json.dumps(row), flush=True)
+    del c16
+    torch.cuda.empty_cache()
+    return out
+
+
+def fast_vs_exact_rows(store, reps: int = 20):
+    """"fast"'s search (chunk_select_search over K1, as the store runs it)
+    against "exact"'s (K1 + torch.topk over every column) on the served
+    rows at B in {2, 8, 64, 256}, k = TIER_K: card time (device_ms) and
+    host time per call. Both run the same K1 scan; "fast" replaces one
+    top-k over N columns by chunk maxima, a top-k over N / 128 and one
+    over the fetched mc * 128 columns."""
+    import torch
+
+    from rag_icd10_tpu_torch.ops.fused_score import fused_search
+    from rag_icd10_tpu_torch.ops.rerank import chunk_select_search
+
+    dev = store._dev
+    c, w, m = dev["corpus"], dev["weights"], dev["mask"]
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    rows = []
+    for b in (2, 8, 64, 256):
+        q = torch.randn((b, DIM), generator=gen, device=DEVICE)
+        q /= q.norm(dim=1, keepdim=True)
+        fast = lambda: chunk_select_search(  # noqa: E731
+            q, c, w, m, k=TIER_K, scan_precision="high", guarantee=False,
+            bound_scale=store._bound_scale)
+        exact = lambda: fused_search(q, c, w, m, k=TIER_K)  # noqa: E731
+        fv, _, cert = fast()
+        ev, _ = exact()
+        torch.cuda.synchronize()
+        certified = cert.nonzero().flatten()
+        check(bool(torch.equal(fv[certified], ev[certified])),
+              f"fast B={b}: certified values vs exact")
+        row = {"B": b, "k": TIER_K, "certified": float(cert.float().mean()),
+               "fast_device_ms": device_ms(fast, reps), "exact_device_ms": device_ms(exact, reps),
+               "fast_host_ms": host_ms(fast, reps), "exact_host_ms": host_ms(exact, reps)}
+        rows.append(row)
+        print("fast vs exact " + json.dumps(row), flush=True)
+    return rows
+
+
+def large_sketch_phase(c, w, reps: int = 5):
+    """build_sketch over the N_LARGE rows on the card (a JL basis: data-free;
+    the screen chunked, 65536 rows a step) and the same rows screened in
+    one scan: the chunked screen's top-m must be the one-scan screen's,
+    values bit for bit, ids up to ties at the m-th."""
+    import torch
+
+    from rag_icd10_tpu_torch.ops.sketch import build_sketch, sketch_screen_scores
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    chunked = build_sketch(c, w, d_sketch=128, kind="random", device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    check(chunked.screen_chunk == 65536, f"screen chunk {chunked.screen_chunk}")
+    flat = build_sketch(c, w, proj=chunked.proj, screen_chunk=0, device=DEVICE)
+    check(torch.equal(flat.sketch_q, chunked.sketch_q), "one projection, one sketch")
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    m = max(8 * TIER_K, 64)  # sketch_search_host_rerank's fetch at k = TIER_K
+    rows = []
+    for b in (8, 64):
+        q = torch.randn((b, DIM), generator=gen, device=DEVICE)
+        q /= q.norm(dim=1, keepdim=True)
+        cv, ci = sketch_screen_scores(chunked, q, m)
+        fv, fi = sketch_screen_scores(flat, q, m)
+        torch.cuda.synchronize()
+        check(torch.equal(cv, fv), f"1M sketch B={b}: chunked screen values vs one scan")
+        differ = 0
+        for c_v, c_i, f_i in zip(cv, ci, fi):
+            for j in set(c_i.tolist()) ^ set(f_i.tolist()):
+                differ += 1
+                check(bool((c_v == c_v[-1]).sum() > 1), f"1M sketch B={b}: id {j} not a tie")
+        row = {"N": N_LARGE, "d_sketch": chunked.d_sketch, "B": b, "m": m,
+               "screen_chunk": chunked.screen_chunk, "ids_differing_on_ties": differ,
+               "device_bytes": chunked.device_bytes, "fp32_rows_bytes": N_LARGE * DIM * 4,
+               "build_s": build_s,
+               "chunked_ms": time_ms(lambda: sketch_screen_scores(chunked, q, m), reps),
+               "one_scan_ms": time_ms(lambda: sketch_screen_scores(flat, q, m), reps)}
+        rows.append(row)
+        print("sketch 1M " + json.dumps(row), flush=True)
+    del chunked, flat
+    torch.cuda.empty_cache()
+    return rows
+
+
 def embed_corpus(encoder, texts, batch: int = 512):
     """Embed in length-sorted batches (fewer padded tokens per forward),
     returned in the original order."""
@@ -611,7 +889,7 @@ def free_port() -> int:
 
 
 def launch_counts():
-    from rag_icd10_tpu_torch.ops import chunk_stream, fused_score
+    from rag_icd10_tpu_torch.ops import chunk_stream, fused_score, quantized
 
     return {
         "K1": fused_score.fused_weighted_scores.launches,
@@ -619,26 +897,29 @@ def launch_counts():
         "K3": chunk_stream.chunk_maxima.launches,
         "K4": chunk_stream.chunk_maxima.launches_int8,
         "K5": chunk_stream.gather_rescore.launches,
+        "int8_mm": quantized.int8_matmul.launches,  # the library's, not a kernel of ours
     }
 
 
 def zero_launch_counts():
-    from rag_icd10_tpu_torch.ops import chunk_stream, fused_score
+    from rag_icd10_tpu_torch.ops import chunk_stream, fused_score, quantized
 
     fused_score.fused_weighted_scores.launches = 0
     fused_score.streaming_candidates.launches = 0
     chunk_stream.chunk_maxima.launches = 0
     chunk_stream.chunk_maxima.launches_int8 = 0
     chunk_stream.gather_rescore.launches = 0
+    quantized.int8_matmul.launches = 0
 
 
 async def serve_and_query(cfg, engine_probe):
     """Start the port's API server, send QUERIES three times (two timed
     passes, then one under torch.profiler), then twice with each certified
-    search method, read /stats, stop it. Returns (latencies_ms, launches,
-    responses, stages, device, certified), where ``certified`` holds each
-    certified method's latencies, responses, launch counts and
-    certificate counts."""
+    search method (streaming, chunkstream, fast) and each approximate one
+    (sketch, hnsw; their screen and graph built first, timed), read
+    /stats, stop it. Returns (latencies_ms, launches, responses, stages,
+    device, certified), where ``certified`` holds each method's
+    latencies, responses, launch counts and certificate counts."""
     import aiohttp
     import torch
     from aiohttp import web
@@ -691,9 +972,13 @@ async def serve_and_query(cfg, engine_probe):
             launches = fused_weighted_scores.launches
             certified = {}
             store = server.engine.store
-            for method in CERTIFIED_METHODS:
+            for method in CERTIFIED_METHODS + APPROX_METHODS:
                 before = dict(store.get_collection_stats()["certificate"])
                 run = {"latencies": [], "responses": []}
+                if method in APPROX_METHODS:  # build outside the timed requests
+                    t = time.perf_counter()
+                    store.build_hnsw() if method == "hnsw" else store._ensure_sketch()
+                    run["build_s"] = time.perf_counter() - t
                 zero_launch_counts()  # this method's requests only
                 for _ in range(2):
                     await query_pass(session, True, method, run["latencies"], run["responses"])
@@ -778,6 +1063,7 @@ def slice_phase(corpus):
     from rag_icd10_tpu_torch.ops.fused_score import (
         fused_score_plan, fused_search, fused_weighted_scores, sm_count,
     )
+    from rag_icd10_tpu_torch.ops.rerank import bf16_rerank_search
 
     db_dir = ROOT / "build" / "chip_smoke"
     db_dir.mkdir(parents=True, exist_ok=True)
@@ -874,6 +1160,19 @@ def slice_phase(corpus):
                        reduced["pallas_int8"]["store"]):
                 _, row = k34_measure(q17[:b], cs, reps=20)
                 found["batches"]["K4" if cs.scan_dtype == "int8" else "K3"].append(row)
+        # this slice: every residency and tier through VectorStore.search,
+        # and K1/K2 on their new paths against their plain versions
+        titles = corpus.titles[:: N_REAL // 64][:64]
+        tier_queries = {8: engine.encoder.encode_queries_device(batch8),
+                        64: engine.encoder.encode_queries_device(titles)}
+        found["tiers"], found["tier_memory"] = tier_phase(engine.store, tier_queries)
+        found["search_checks"] = search_kernel_checks(
+            engine.store, {q.shape[0]: q, **tier_queries})
+        found["fast_vs_exact"] = fast_vs_exact_rows(engine.store)
+        zero_launch_counts()  # bf16_rerank_search once at the main shape
+        bf16_rerank_search(q, corpus_t.to(torch.bfloat16), corpus_t, w, m, k=k,
+                           bound_scale=engine.store._bound_scale)
+        found["bf16_rerank_launches"] = launch_counts()["K2"]
 
     latencies, launches, responses, stages, device, certified = asyncio.run(
         serve_and_query(cfg, probe))
@@ -903,8 +1202,30 @@ def slice_phase(corpus):
     for method, run in certified.items():
         for text, top_k, status, body in run["responses"]:
             check(status == 200, f"/query {method} {text!r}: {status} {body}")
-            same_candidates(body["candidates"], exact_by_query[(text, top_k)]["candidates"],
-                            f"/query {method} {text!r} vs exact")
+            cands = body["candidates"]
+            if method in APPROX_METHODS:
+                check(1 <= len(cands) <= top_k and all(np.isfinite(c["score"]) for c in cands),
+                      f"/query {method} {text!r}: {len(cands)} candidates")
+            else:
+                same_candidates(cands, exact_by_query[(text, top_k)]["candidates"],
+                                f"/query {method} {text!r} vs exact")
+        if method in APPROX_METHODS:
+            # selection approximate, scores exact: the overlap of the
+            # served candidates' codes with exact's
+            overlap = []
+            for text, top_k, _, body in run["responses"]:
+                want = {c["code"] for c in exact_by_query[(text, top_k)]["candidates"]}
+                got = {c["code"] for c in body["candidates"]}
+                overlap.append(len(got & want) / max(1, len(want)))
+            p50m = statistics.median(run["latencies"])
+            print(f"/query {method}: {len(run['responses'])} requests, p50 {p50m:.2f} ms, "
+                  f"max {max(run['latencies']):.2f} ms; built in {run['build_s']:.2f} s; "
+                  f"candidate overlap with exact {statistics.mean(overlap):.4f}", flush=True)
+            e2e[f"{method}_p50_ms"] = p50m
+            e2e[f"{method}_max_ms"] = max(run["latencies"])
+            e2e[f"{method}_build_s"] = run["build_s"]
+            e2e[f"{method}_overlap_with_exact"] = statistics.mean(overlap)
+            continue
         cert = run["certificate"]
         check(cert["queries"] > 0, f"{method}: the store certified no query")
         if method == "chunkstream":
@@ -918,8 +1239,15 @@ def slice_phase(corpus):
               f"redone batches {cert['redos']}; launches {json.dumps(run['launches'])}",
               flush=True)
         e2e[f"{method}_p50_ms"] = p50m
+        e2e[f"{method}_max_ms"] = max(run["latencies"])
         e2e[f"{method}_certified_fraction"] = cert["certified"] / cert["queries"]
         e2e[f"{method}_redos"] = cert["redos"]
+        if method == "fast":
+            k1 = run["launches"]["K1"]
+            n_req = len(run["responses"])
+            check(k1 >= n_req, f"fast: K1 launched {k1} times in {n_req} requests")
+            print(f"/query fast: K1 launches per request {k1 / n_req:.3f}", flush=True)
+            e2e["fast_k1_launches_per_request"] = k1 / n_req
     counts = {"K2": certified["streaming"]["launches"]["K2"],
               "K3": certified["chunkstream"]["launches"]["K3"],
               "K5": certified["chunkstream"]["launches"]["K5"]}
@@ -937,6 +1265,22 @@ def slice_phase(corpus):
         main[name]["batches"] = found["batches"][name]
     for name in ("K2", "K3", "K4", "K5"):
         print(f"{name} main path " + json.dumps(main[name]), flush=True)
+    # this slice's paths: K1 under "fast" (its /query requests) and
+    # chunk_select_search; K2 under bf16_rerank_search (no store method
+    # calls it: one call at the main shape)
+    check(found["bf16_rerank_launches"] == 1, "bf16_rerank_search launched K2")
+    main["K1"]["launches_by_path"] = {"exact": launches,
+                                      "fast": certified["fast"]["launches"]["K1"]}
+    main["K1"]["chunk_select"] = found["search_checks"]["chunk_select"]
+    main["K2"]["launches_by_path"] = {"streaming": counts["K2"],
+                                      "bf16_rerank": found["bf16_rerank_launches"]}
+    main["K2"]["bf16_rerank"] = found["search_checks"]["bf16_rerank"]
+    print("int8 product " + json.dumps(found["search_checks"]["int8"]), flush=True)
+    print("tier memory " + json.dumps(found["tier_memory"]), flush=True)
+    e2e["fast_vs_exact"] = found["fast_vs_exact"]
+    e2e["tiers"] = {f"{r['tier']}_B{r['B']}": {key: r[key] for key in
+                    ("recall_at_k", "max_score_err_vs_exact", "ms", "exact_ms")}
+                    for r in found["tiers"]}
     return main, e2e
 
 
@@ -970,7 +1314,8 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     corpus = synthetic_corpus(N_REAL, seed=0)
-    sweep, k1_threshold, sweeps = kernel_phase(corpus.level_weights((1.2, 1.0, 0.8)))
+    sweep, k1_threshold, sweeps, sketch_large = kernel_phase(
+        corpus.level_weights((1.2, 1.0, 0.8)))
     sweeps["K1"] = sweep
     print("K34 threshold rows " + json.dumps(sweeps.pop("threshold")), flush=True)
     main_path, e2e = slice_phase(corpus)
@@ -1004,8 +1349,11 @@ def main() -> int:
                       if key in row},
             **({"main_batches": row["batches"]} if "batches" in row else {}),
             **({"threshold": k1_threshold} if kid == "K1" else {}),
+            **{key: row[key] for key in ("launches_by_path", "chunk_select", "bf16_rerank")
+               if key in row},
             "sweep": sweeps[kid],
         })
+    e2e["sketch_1M"] = sketch_large
     print("e2e " + json.dumps(e2e), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

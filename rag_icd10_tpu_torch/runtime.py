@@ -123,10 +123,25 @@ class Engine:
         if self.store is None:
             cfg = self.config.store
             if cfg.mode in ("remote", "server") and cfg.server_url:
-                raise ValueError(
-                    "STORE_MODE=remote (a peer server's store) not yet "
-                    "ported to rag_icd10_tpu_torch"
-                )
+                # share a peer API server's device-resident corpus
+                # (reference: MILVUS_MODE=server, milvus_service.py:57-118)
+                from .index.remote_store import RemoteVectorStore
+
+                logger.info("remote store mode -> %s", cfg.server_url)
+                # corpus=None (NOT load_corpus's synthetic fallback: fake
+                # titles would poison the terminology cache) when the real
+                # CSV is absent: remote hits carry all metadata and
+                # corpus-wide features degrade cleanly
+                corpus = None
+                if self.config.data_path and Path(self.config.data_path).exists():
+                    corpus = load_corpus(self.config.data_path)
+                else:
+                    logger.warning(
+                        "no local corpus CSV — remote hits carry all "
+                        "metadata; terminology features degrade gracefully"
+                    )
+                self.store = RemoteVectorStore(cfg.server_url, corpus=corpus)
+                return self.store
             base = self.config.store.db_path
             if VectorStore.exists(base):
                 logger.info("loading persisted store from %s", base)
@@ -215,39 +230,57 @@ class Engine:
 
     def _warmup_extra_methods(self, sizes) -> None:
         """Run the opt-in per-request search methods
-        (WARMUP_SEARCH_METHODS) once per batch size. The methods this
-        package serves (exact, approx, streaming, chunkstream) are warmed:
-        their first launches load the kernel libraries, and chunkstream's
-        builds the chunk store. The others in the list (fast, from the
-        default "fast,streaming") are not yet ported and are skipped with
-        a log line. Drives ``store.search`` directly with random unit
-        vectors."""
+        (WARMUP_SEARCH_METHODS, default "fast,streaming") once per batch
+        size: their first launches load the kernel libraries, chunkstream's
+        builds the chunk store, sketch's the screen; "hnsw" builds the
+        graph. Drives ``store.search`` directly with random unit vectors.
+        A host-resident store serves only sketch and hnsw: the others are
+        skipped with a log line, and sketch is warmed where the list has
+        neither; chunkstream is skipped likewise over a residency other
+        than fp32, which refuses it."""
         import numpy as np
 
-        from .index.vector_store import SERVED_METHODS, UNPORTED_METHODS
+        from .index.vector_store import SERVED_METHODS
 
         methods = [
             m.strip().lower()
             for m in self.config.api.warmup_methods.split(",")
             if m.strip()
         ]
-        if not methods or self.store is None or not self.store.num_entities:
+        if not methods or not isinstance(self.store, VectorStore):
+            return  # no store, or a remote one: its serving host warms itself
+        if not self.store.num_entities:
             return
         overfetch = self.config.pipeline.overfetch
         rng = np.random.default_rng(0)
+        host_tier = self.store.config.device_dtype == "host"
+        if host_tier and not any(m in ("sketch", "hnsw") for m in methods):
+            methods.append("sketch")
         for method in methods:
-            if method in UNPORTED_METHODS:
-                logger.info("warmup: skipping method=%s (not yet ported)", method)
-                continue
             if method not in SERVED_METHODS:
                 logger.warning("unknown WARMUP_SEARCH_METHODS entry: %s", method)
                 continue
+            if host_tier and method not in ("sketch", "hnsw"):
+                logger.info(
+                    "warmup: skipping method=%s (host-tier store serves "
+                    "sketch/hnsw only)", method,
+                )
+                continue
+            if method == "chunkstream" and self.store.config.device_dtype != "float32":
+                logger.info(
+                    "warmup: skipping method=chunkstream (it needs fp32 "
+                    "residency, the store holds %s)", self.store.config.device_dtype,
+                )
+                continue
             t0 = time.time()
-            for size in sizes:
-                q = rng.standard_normal((size, self.store.dim)).astype(np.float32)
-                q /= np.linalg.norm(q, axis=1, keepdims=True)
-                for top_k in (5, 10):
-                    self.store.search(q, top_k * overfetch, method=method)
+            if method == "hnsw":
+                self.store.build_hnsw()
+            else:
+                for size in sizes:
+                    q = rng.standard_normal((size, self.store.dim)).astype(np.float32)
+                    q /= np.linalg.norm(q, axis=1, keepdims=True)
+                    for top_k in (5, 10):
+                        self.store.search(q, top_k * overfetch, method=method)
             logger.info("warmup(%s) done in %.0fs", method, time.time() - t0)
 
     def shutdown(self) -> None:

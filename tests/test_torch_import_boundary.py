@@ -22,6 +22,7 @@ for name in names:
 leaked = sorted(m for m in sys.modules
                 if m == "rag_icd10_tpu" or m.startswith("rag_icd10_tpu."))
 print("modules=%d" % len(names))
+print("names=" + ",".join(names))
 print("leaked=" + ",".join(leaked))
 """
 
@@ -33,7 +34,11 @@ def test_port_imports_no_jax_and_no_jax_package():
     )
     assert out.returncode == 0, out.stderr
     report = dict(line.split("=", 1) for line in out.stdout.split())
-    assert int(report["modules"]) >= 25, out.stdout  # every module was walked
+    assert int(report["modules"]) >= 28, out.stdout  # every module was walked
+    walked = set(report["names"].split(","))
+    for name in ("ops.rerank", "ops.quantized", "ops.sketch", "index.hnsw_index",
+                 "index.remote_store"):
+        assert "rag_icd10_tpu_torch." + name in walked, name
     assert report["leaked"] == "", f"JAX package modules imported: {report['leaked']}"
 
 

@@ -8,14 +8,17 @@ the JAX package's, on the CPU.
   ties) and scores within 1e-4 at float32 encoder dtype (fp32 forwards
   and scans; the 1e-4 covers the rescoring stack's sums over them).
 - The port's APIServer answers /query and /health through aiohttp's
-  TestClient; /query with ``search_method`` "streaming" or "chunkstream"
-  gives the candidates of "exact", and an unported method gives 400.
+  TestClient; /query with ``search_method`` "streaming", "chunkstream" or
+  "fast" gives the candidates of "exact", and what is still not ported
+  (``STORE_SHARDED=on``) gives 400. Every method and residency of the
+  third slice answers /query.
 - The four tests/golden/*.json API fixtures reproduce through the port's
   store with the deterministic MockEncoder, built as tests/test_api.py
   builds the JAX engine.
 """
 
 import asyncio
+import dataclasses
 import json
 from pathlib import Path
 
@@ -42,6 +45,7 @@ from rag_icd10_tpu.runtime import Engine as JEngine
 from rag_icd10_tpu_torch import config as tconfig
 from rag_icd10_tpu_torch.api.app import APIServer
 from rag_icd10_tpu_torch.data.corpus import ICDCorpus
+from rag_icd10_tpu_torch.index.remote_store import RemoteVectorStore
 from rag_icd10_tpu_torch.index.vector_store import VectorStore
 from rag_icd10_tpu_torch.ops.fused_score import fused_weighted_scores
 from rag_icd10_tpu_torch.pipeline.ner import MedicalNERService
@@ -96,17 +100,16 @@ def deployment(tmp_path_factory):
     return db, enc_kwargs
 
 
-def _configs(db, enc_kwargs):
-    # the port warms the methods it serves and skips "fast" (not ported)
+def _configs(db, enc_kwargs, **store):
     api = dict(max_batch=4, warmup_methods="exact,fast,streaming,chunkstream")
     jcfg = jconfig.Config(
         encoder=jconfig.EncoderConfig(**enc_kwargs),
-        store=jconfig.StoreConfig(db_path=db),
+        store=jconfig.StoreConfig(db_path=db, **store),
         api=jconfig.APIConfig(**api),
     )
     tcfg = tconfig.Config(
         encoder=tconfig.EncoderConfig(**enc_kwargs),
-        store=tconfig.StoreConfig(db_path=db),
+        store=tconfig.StoreConfig(db_path=db, **store),
         api=tconfig.APIConfig(**api),
     )
     return jcfg, tcfg
@@ -132,11 +135,12 @@ def test_engine_matches_jax_engine(engines):
     )
 
 
-@pytest.mark.parametrize("method", ["streaming", "chunkstream"])
+@pytest.mark.parametrize("method", ["streaming", "chunkstream", "fast", "sketch", "hnsw"])
 def test_engine_certified_methods_match_jax_engine(engines, method):
     """The certified methods through the whole pipeline give the JAX
     Engine's results for the same method (off the TPU the JAX store
-    serves them by its exact scan and its XLA chunk-select engine)."""
+    serves them by its exact scan and its XLA chunk-select engines); so do
+    "sketch" and "hnsw", whose screen basis and graph are the JAX store's."""
     jeng, teng = engines
     _assert_same_matches(
         teng.matcher.match_many_texts(TEXTS, top_k=5, search_method=method),
@@ -215,7 +219,7 @@ def test_api_server_answers_query_and_health(deployment):
                 loop, tc, "post", "/query",
                 {"text": text, "top_k": 10, "search_method": "exact"},
             )
-            for method in ("streaming", "chunkstream"):
+            for method in ("streaming", "chunkstream", "fast"):
                 status, body = _request(
                     loop, tc, "post", "/query",
                     {"text": text, "top_k": 10, "search_method": method},
@@ -226,14 +230,71 @@ def test_api_server_answers_query_and_health(deployment):
                 np.testing.assert_allclose(
                     [c["score"] for c in got], [c["score"] for c in exp], atol=1e-5
                 )
+        # what is still not ported answers 400: a store switched to
+        # multi-device sharding refuses to load on the next request
+        store = server.engine.store
+        store.release_collection()
+        store.config = dataclasses.replace(store.config, sharded="on")
         status, body = _request(
             loop, tc, "post", "/query",
-            {"text": "急性胃肠炎", "search_method": "fast"},
+            {"text": "急性胃肠炎", "search_method": "exact"},
         )
         assert status == 400 and "not yet ported" in body["detail"]
     finally:
         loop.run_until_complete(tc.close())
         loop.close()
+
+
+RESIDENCIES = {
+    "fp32": {},
+    "int8-device": {"device_dtype": "int8", "int8_rerank": "device"},
+    "int8-host": {"device_dtype": "int8", "int8_rerank": "host"},
+    "host": {"device_dtype": "host"},
+    "hnsw-index": {"index_type": "HNSW"},
+}
+
+
+@pytest.mark.parametrize("residency", list(RESIDENCIES))
+def test_api_server_serves_every_method_and_residency(deployment, residency):
+    """/query on the CPU through the port's APIServer in each residency
+    and, over fp32, each new method. Exact-selection ones give the
+    candidates of "exact" on the fp32 store; the approximate ones (int8
+    device, sketch, hnsw) answer with finite scores and overlap it."""
+    _, want_cfg = _configs(*deployment)
+    _, tcfg = _configs(*deployment, **RESIDENCIES[residency])
+    want_server = APIServer(config=want_cfg, device="cpu")
+    server = APIServer(config=tcfg, device="cpu")
+    loops = [_serve(want_server), _serve(server)]
+    (wloop, wtc), (loop, tc) = loops
+    methods = ("fast", "sketch", "hnsw") if residency == "fp32" else (None,)
+    exact_selection = {"fast", "int8-host"}
+    try:
+        for text in TEXTS:
+            _, want = _request(wloop, wtc, "post", "/query",
+                               {"text": text, "top_k": 10, "search_method": "exact"})
+            for method in methods:
+                payload = {"text": text, "top_k": 10}
+                if method:
+                    payload["search_method"] = method
+                status, body = _request(loop, tc, "post", "/query", payload)
+                assert status == 200, (residency, method, body)
+                got, exp = body["candidates"], want["candidates"]
+                assert 1 <= len(got) <= 10
+                assert all(np.isfinite(c["score"]) for c in got)
+                if method in exact_selection or residency in exact_selection:
+                    assert [c["code"] for c in got] == [c["code"] for c in exp]
+                    np.testing.assert_allclose(
+                        [c["score"] for c in got], [c["score"] for c in exp], atol=1e-5)
+                else:
+                    overlap = {c["code"] for c in got} & {c["code"] for c in exp}
+                    assert len(overlap) >= len(exp) // 2, (residency, method)
+        status, stats = _request(loop, tc, "get", "/stats")
+        assert status == 200
+        assert stats["milvus"]["memory"]["device_dtype"] == tcfg.store.device_dtype
+    finally:
+        for lp, client in loops:
+            lp.run_until_complete(client.close())
+            lp.close()
 
 
 def _mock_engine():
@@ -288,8 +349,11 @@ def test_golden_fixture_through_port(mock_client, name, path, payload):
 
 
 def test_unported_modes_raise_at_startup(monkeypatch):
-    """Modes the port does not serve yet fail loudly where they are
-    configured, instead of silently serving something else."""
+    """Modes the port does not serve yet (NER model mode, FUSED_QUERY) fail
+    loudly where they are configured, instead of silently serving
+    something else. STORE_MODE=remote, which raised here until the port's
+    third slice, builds the port's remote client (its parity tests are
+    tests/test_torch_remote_store.py)."""
     monkeypatch.setenv("NER_WEIGHTS_PATH", "/nonexistent/ner.npz")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         MedicalNERService(tconfig.NERConfig(use_model=True))
@@ -303,8 +367,12 @@ def test_unported_modes_raise_at_startup(monkeypatch):
             mode="remote", server_url="http://127.0.0.1:1")),
         device="cpu",
     )
-    with pytest.raises(ValueError, match="not yet ported"):
-        engine.init_store()
+    store = engine.init_store()
+    try:
+        assert isinstance(store, RemoteVectorStore) and store.url == "http://127.0.0.1:1"
+        assert not store.test_connection()  # nothing listens there
+    finally:
+        store.close()
 
 
 def test_api_server_stats_and_embed(deployment):

@@ -4,8 +4,15 @@ the same synthetic corpus and vectors.
 
 Hits must name the same codes up to ties, with scores within 1e-5 (IEEE
 fp32 on both sides; sums over D=128 in different orders). A store saved
-by either package must load in the other. Methods the port does not
-serve yet must raise instead of silently serving another method.
+by either package must load in the other. What the port does not serve
+yet (``sharded="on"``) must raise instead of silently serving something
+else.
+
+Every search method and residency is served: "fast"/"chunk" (certified,
+exact), "sketch" and "hnsw" (the same basis and graph as the JAX store's,
+so the same selection; exact scores), int8 residency with both
+``INT8_RERANK`` values and host residency; each gives the JAX store's
+hits at the same tolerance.
 
 The certified methods ("streaming", "chunkstream") must give the exact
 method's hits: off the TPU the JAX store serves "streaming" by its exact
@@ -129,9 +136,14 @@ def test_store_saved_by_one_package_loads_in_the_other(stores, tmp_path, writer)
 
 @pytest.mark.parametrize("method", ["fast", "sketch", "hnsw"])
 def test_unported_methods_raise(stores, method):
-    _, tstore = stores
-    with pytest.raises(ValueError, match="not yet ported"):
-        tstore.search(_vectors(1, 0), 5, method=method)
+    """These methods raised "not yet ported" until the port's third slice;
+    now they are served and give the JAX store's hits."""
+    jstore, tstore = stores
+    q = _vectors(6, 21)
+    for top_k in (1, 5):
+        _assert_same_hits(
+            tstore.search(q, top_k, method=method), jstore.search(q, top_k, method=method)
+        )
 
 
 @pytest.mark.parametrize(
@@ -145,10 +157,122 @@ def test_unported_methods_raise(stores, method):
     ids=["int8", "host", "sharded", "hnsw-index"],
 )
 def test_unported_residency_raises(config):
+    """Multi-device sharding is still not ported and raises; int8 and host
+    residency and the HNSW index type, which raised until the port's third
+    slice, are served and give the JAX store's hits."""
     store = VectorStore(dim=DIM, config=config, device="cpu")
     store.insert_records(list(synthetic_corpus(20).records()), _vectors(20, 1))
-    with pytest.raises(ValueError, match="not yet ported"):
-        store.search(_vectors(1, 0), 5)
+    if config.sharded == "on":
+        with pytest.raises(ValueError, match="not yet ported"):
+            store.search(_vectors(1, 0), 5)
+        return
+    jstore = JStore(dim=DIM, config=JStoreConfig(
+        device_dtype=config.device_dtype, index_type=config.index_type))
+    jstore.insert_records(list(jsynthetic(20).records()), _vectors(20, 1))
+    q = _vectors(3, 0)
+    _assert_same_hits(store.search(q, 5), jstore.search(q, 5))
+
+
+N_T, DIM_T = 3000, 64  # 24 chunks of 128 rows: "fast" selects among them
+
+TIERS = {
+    "fast": ({}, "fast"),
+    "chunk": ({}, "chunk"),
+    "fast-over-bf16": ({"device_dtype": "bfloat16"}, "fast"),
+    "sketch": ({}, "sketch"),
+    "hnsw": ({}, "hnsw"),
+    "hnsw-index": ({"index_type": "HNSW"}, None),
+    "int8-device": ({"device_dtype": "int8", "int8_rerank": "device"}, None),
+    "int8-device-approx": ({"device_dtype": "int8", "int8_rerank": "device"}, "approx"),
+    "int8-host": ({"device_dtype": "int8", "int8_rerank": "host"}, None),
+    "host": ({"device_dtype": "host"}, None),
+    "host-hnsw": ({"device_dtype": "host"}, "hnsw"),
+}
+
+
+@pytest.fixture(scope="module")
+def tier_data():
+    rng = np.random.default_rng(31)
+    centers = rng.standard_normal((40, DIM_T)).astype(np.float32)
+    vecs = centers[rng.integers(0, 40, N_T)] + 0.4 * rng.standard_normal(
+        (N_T, DIM_T)).astype(np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    q = vecs[rng.integers(0, N_T, 7)] + 0.05 * rng.standard_normal((7, DIM_T)).astype(np.float32)
+    return vecs, q
+
+
+@pytest.mark.parametrize("tier", list(TIERS))
+def test_every_method_and_residency_matches_jax_store(tier_data, tier):
+    """Each method and residency of the third slice through both stores
+    on the same clustered rows: the JAX store's hits (codes up to ties,
+    scores within 1e-5), and, where the tier scores in exact fp32 (all but
+    bf16 residency and the int8 device re-rank), the exact scores of its
+    rows; the memory accounting agrees."""
+    vecs, q = tier_data
+    cfg, method = TIERS[tier]
+    jstore = JStore(dim=DIM_T, config=JStoreConfig(pad_multiple=128, **cfg))
+    jstore.insert_records(list(jsynthetic(N_T, seed=4).records()), vecs)
+    tstore = VectorStore(dim=DIM_T, config=StoreConfig(pad_multiple=128, **cfg), device="cpu")
+    tstore.insert_records(list(synthetic_corpus(N_T, seed=4).records()), vecs)
+    for top_k in (5, 20):
+        got = tstore.search(q, top_k, method=method)
+        _assert_same_hits(got, jstore.search(q, top_k, method=method))
+        if cfg.get("device_dtype") != "bfloat16" and cfg.get("int8_rerank") != "device":
+            w = tstore.corpus.level_weights(tstore.config.level_weights)
+            for row, qi in zip(got, q):
+                for h in row:
+                    assert abs(h.score - float(vecs[h.id] @ qi) * w[h.id]) <= 1e-5
+    tm, jm = tstore.get_memory_usage(), jstore.get_memory_usage()
+    assert tm["device_vector_bytes"] == jm["device_vector_bytes"]
+    cert = tstore.get_collection_stats()["certificate"]
+    if method in ("fast", "chunk") and not cfg:
+        assert cert["queries"] == 14 and cert["certified"] == 14 and cert["redos"] == 0
+
+
+def test_host_tier_refuses_exact_methods():
+    store = VectorStore(dim=DIM, config=StoreConfig(device_dtype="host"), device="cpu")
+    store.insert_records(list(synthetic_corpus(40).records()), _vectors(40, 1))
+    for method in ("exact", "fast", "streaming", "chunkstream"):
+        with pytest.raises(ValueError, match="host tier"):
+            store.search(_vectors(2, 0), 5, method=method)
+    assert len(store.search(_vectors(2, 0), 5)[0]) == 5  # its default: the sketch
+    assert store._sketch is not None and store._dev is None
+    store.release_collection()
+    assert store._sketch is None
+
+
+def test_int8_residency_refuses_chunkstream_and_unknown():
+    store = VectorStore(dim=DIM, config=StoreConfig(device_dtype="int8"), device="cpu")
+    store.insert_records(list(synthetic_corpus(40).records()), _vectors(40, 1))
+    with pytest.raises(ValueError, match="fp32 device residency"):
+        store.search(_vectors(2, 0), 5, method="chunkstream")
+    with pytest.raises(ValueError, match="unknown search method"):
+        store.search(_vectors(2, 0), 5, method="bogus")
+    bad = VectorStore(dim=DIM, config=StoreConfig(device_dtype="float16"), device="cpu")
+    bad.insert_records(list(synthetic_corpus(40).records()), _vectors(40, 1))
+    with pytest.raises(ValueError, match="STORE_DEVICE_DTYPE"):
+        bad.search(_vectors(1, 0), 5)
+
+
+def test_fast_uncertified_batch_redone_in_finalize():
+    """Near-ties across more chunks than "fast" fetches de-certify (its 2
+    eps margin); finalize() redoes the batch on the exact path and counts
+    it."""
+    n, k = 6000, 5
+    vecs = _vectors(n, 2, DIM_CS)
+    store = VectorStore(dim=DIM_CS, config=StoreConfig(pad_multiple=128), device="cpu")
+    store.insert_records(list(synthetic_corpus(n, seed=2).records()), vecs)
+    target = vecs[0].copy()
+    w = store.corpus.level_weights(store.config.level_weights)
+    for i in range(46):  # a near-tie in each of 46 chunks; fast fetches 35
+        row = 128 * i + 5
+        store._vectors[row] = target * (2.0 - 1e-7 * i) / w[row]
+    q = target[None, :]
+    exact = store.search(q, k, method="exact")
+    got = store.search(q, k, method="fast")
+    cert = store.get_collection_stats()["certificate"]
+    assert cert == {"queries": 1, "certified": 0, "redos": 1}
+    _assert_same_hits(got, exact)
 
 
 def test_lifecycle_and_stats(stores):
