@@ -61,7 +61,23 @@
    product on the card bit for bit against the CPU's int32 matmul; and
    build_sketch over the N = 1,048,576 rows on the card, its chunked
    screen against the one-scan screen.
-6. Prints one JSON line describing each kernel, and as the last line
+6. Fused + NER phase (FUSED_QUERY=1, NER model mode): writes a seeded
+   BERT-base token classifier (12 layers, 768 hidden, the encoder's
+   vocab, the 9 labels of rag_icd10_tpu/tools/train_ner.py) with the
+   port's converter functions and holds it on the card against the CPU
+   on the 8 QUERIES (bf16 within 2e-2, fp32 within 1e-5 with the same
+   spans); starts a server over the saved store with FUSED_QUERY=1 and
+   NER_WEIGHTS_PATH set (the warmup captures the CUDA graphs) and sends
+   QUERIES twice timed and once under torch.profiler, then once with
+   search_method "exact" (the two-step path on the same server). Every
+   request must take the fused path, one replay per coalesced batch and
+   K1 once per replay, the candidates must equal the two-step path's,
+   NER must run in model mode with no fallback to rules. Then
+   FusedQueryEngine.query at B in {1, 8, 64} and k in {20, 100} (exact,
+   approx, streaming over fp32; exact over bf16), each replay held
+   against the eager two-step path with the plain kernel version and
+   timed beside the same chain run eagerly.
+7. Prints one JSON line describing each kernel, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises: the script then exits non-zero. It also exits
@@ -1281,7 +1297,398 @@ def slice_phase(corpus):
     e2e["tiers"] = {f"{r['tier']}_B{r['B']}": {key: r[key] for key in
                     ("recall_at_k", "max_score_err_vs_exact", "ms", "exact_ms")}
                     for r in found["tiers"]}
-    return main, e2e
+    return main, e2e, cfg, stages
+
+
+# ---------------------------------------------------------------------------
+# Fused + NER phase (FUSED_QUERY=1, NER_WEIGHTS_PATH): the encoder, K1/K2
+# and torch.topk as one CUDA graph replay per bucket; NER in model mode.
+# ---------------------------------------------------------------------------
+
+NER_LABELS = (  # rag_icd10_tpu/tools/train_ner.py:39-45
+    "O", "B-Disease", "I-Disease", "B-Symptom", "I-Symptom",
+    "B-BodyParts", "I-BodyParts", "B-Drug", "I-Drug",
+)
+TOL_NER_FP32 = 1e-5  # fp32 forwards on the card and the CPU, sums in other orders
+TOL_NER_BF16 = 2e-2  # bf16 dense layers round at other places on the two devices
+TOL_EMB = 1e-5  # a graph replay against the same kernels run eagerly
+FUSED_BATCHES = (1, 8, 64)
+FUSED_KS = (20, 100)
+
+
+def write_ner_weights(vocab_path, out_dir: Path, seed: int = 1):
+    """A BERT-base token classifier (12 layers, 768 hidden, 12 heads, 3072
+    intermediate, vocab 21,128) with seeded weights and a seeded 9-label
+    head, written as params.npz, config.json and vocab.txt with the port's
+    converter functions."""
+    import shutil
+
+    import numpy as np
+
+    from rag_icd10_tpu_torch.models.bert import BertArch, init_params
+    from rag_icd10_tpu_torch.models.convert_hf import save_params
+
+    a = BertArch()
+    params = init_params(a, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    # logits of std about 3 over the 9 labels: peaked enough that spans
+    # pass the 0.5 confidence floor
+    params["classifier"] = {
+        "kernel": rng.standard_normal((a.hidden_size, len(NER_LABELS)), dtype=np.float32)
+        * np.float32(3.0 / np.sqrt(a.hidden_size)),
+        "bias": np.zeros(len(NER_LABELS), np.float32),
+    }
+    out_dir.mkdir(parents=True, exist_ok=True)
+    save_params(params, str(out_dir / "params.npz"))
+    shutil.copy(vocab_path, out_dir / "vocab.txt")
+    (out_dir / "config.json").write_text(json.dumps({
+        "vocab_size": a.vocab_size, "hidden_size": a.hidden_size,
+        "num_hidden_layers": a.num_layers, "num_attention_heads": a.num_heads,
+        "intermediate_size": a.intermediate_size,
+        "max_position_embeddings": a.max_position_embeddings,
+        "id2label": {str(i): label for i, label in enumerate(NER_LABELS)},
+    }))
+    return a
+
+
+def ner_card_vs_cpu(ner_dir: Path, reps: int = 5) -> dict:
+    """The NER classifier on the card against the same model on the CPU on
+    the 8 QUERIES: probabilities within TOL_NER_BF16 at bf16 (the served
+    dtype) and within TOL_NER_FP32 at fp32, where the spans must be the
+    same too; and the card's time per forward (host clock: predict ends
+    in its read back)."""
+    import numpy as np
+    import torch
+
+    from rag_icd10_tpu_torch.pipeline.ner_model import TorchTokenClassifier
+
+    out = {}
+    for name, dtype, tol in (("bf16", torch.bfloat16, TOL_NER_BF16),
+                             ("fp32", torch.float32, TOL_NER_FP32)):
+        card = TorchTokenClassifier.from_weights(str(ner_dir), device=DEVICE, compute_dtype=dtype)
+        host = TorchTokenClassifier.from_weights(str(ner_dir), device="cpu", compute_dtype=dtype)
+        check((card.arch.num_layers, card.arch.hidden_size, card.arch.num_heads,
+               card.arch.intermediate_size) == (12, 768, 12, 3072),
+              f"full-width BERT-base NER classifier, got {card.arch}")
+        err, spans = 0.0, 0
+        for text, _ in QUERIES:
+            _, _, ids, mask = host.encode(text)
+            err = max(err, float(np.abs(card.probabilities(ids, mask)
+                                        - host.probabilities(ids, mask)).max()))
+            if dtype == torch.float32:
+                got, want = card.predict(text), host.predict(text)
+                check([s[:2] + s[3:] for s in got] == [s[:2] + s[3:] for s in want],
+                      f"NER fp32 spans on the card vs the CPU: {text!r}")
+                check(all(abs(g[2] - w[2]) <= tol for g, w in zip(got, want)),
+                      f"NER fp32 span scores on the card vs the CPU: {text!r}")
+                spans += len(got)
+        check(err <= tol, f"NER {name} probabilities card vs CPU {err} > {tol}")
+        for text, _ in QUERIES:
+            card.predict(text)
+        before, t = card.forwards, time.perf_counter()
+        for _ in range(reps):
+            for text, _ in QUERIES:
+                card.predict(text)
+        out[name] = {"max_abs_err": err, "tol": tol,
+                     "ms_per_forward": (time.perf_counter() - t) * 1e3 / (card.forwards - before)}
+        if dtype == torch.float32:
+            out[name]["spans"] = spans
+        del card, host
+    torch.cuda.empty_cache()
+    return out
+
+
+def same_up_to_ties(got_v, got_i, want_v, want_i, what):
+    """Values within TOL_FP32; an id in one top-k and not the other scores
+    within TOL_FP32 of the k-th value (a tie at the boundary)."""
+    import numpy as np
+
+    err = float(np.abs(np.asarray(got_v) - np.asarray(want_v)).max())
+    check(err <= TOL_FP32, f"{what}: values differ by {err}")
+    for gv, gi, wv, wi in zip(got_v, got_i, want_v, want_i):
+        g, w = dict(zip(gi.tolist(), gv.tolist())), dict(zip(wi.tolist(), wv.tolist()))
+        for j in g.keys() ^ w.keys():
+            check(abs(g.get(j, w.get(j)) - float(wv[-1])) <= TOL_FP32, f"{what}: id {j}")
+    return err
+
+
+def fused_engine_rows(engine, corpus) -> list:
+    """FusedQueryEngine.query at B in FUSED_BATCHES and k in FUSED_KS:
+    exact, approx and streaming over the served fp32 store, exact over a
+    bf16 store of the same rows. Each replay is held against the eager
+    two-step path (the encoder, the kernel's plain version, torch.topk);
+    each key's second query is a pure replay whose launches are counted;
+    the replay and the same chain run eagerly are timed on the card and
+    on the host."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from rag_icd10_tpu_torch.index.vector_store import VectorStore
+    from rag_icd10_tpu_torch.ops.flat_topk import weighted_scores_reference
+    from rag_icd10_tpu_torch.ops.fused_query import FusedQueryEngine, replay_launches
+
+    bf16 = VectorStore(dim=engine.store.dim, config=dataclasses.replace(
+        engine.store.config, device_dtype="bfloat16"), device=DEVICE)
+    bf16.corpus, bf16._vectors = engine.store.corpus, engine.store._vectors
+    bf16.load_collection()
+    n = engine.store.num_entities
+    texts_by_b = {1: [QUERIES[0][0]], 8: [t for t, _ in QUERIES],
+                  64: corpus.titles[:: max(1, n // 64)][:64]}
+    rows = []
+    for store, method in ((engine.store, "exact"), (engine.store, "approx"),
+                          (engine.store, "streaming"), (bf16, "exact")):
+        fq = FusedQueryEngine(engine.encoder, store)
+        dev = store._dev
+        corpus_t, w, m = dev["corpus"], dev["weights"], dev["mask"]
+        residency = str(corpus_t.dtype).replace("torch.", "")
+        for b, texts in texts_by_b.items():
+            for k in FUSED_KS:
+                what = f"fused {residency} {method} B={b} k={k}"
+                fq.query(texts, k=k, method=method)  # warm-up, capture, replay
+                zero_launch_counts()
+                emb, vals, idx = fq.query(texts, k=k, method=method)
+                counts = launch_counts()
+                k1, k2, _ = replay_launches(k, method)
+                check((counts["K1"], counts["K2"]) == (k1, k2),
+                      f"{what}: one replay launched {counts}")
+                with torch.inference_mode():
+                    q = engine.encoder.encode_queries_device(texts)
+                    plain = weighted_scores_reference(q.to(corpus_t.dtype), corpus_t, w, m)
+                    pv, pi = torch.topk(plain, k, dim=1)
+                emb_err = float(np.abs(emb - q.cpu().numpy()).max())
+                check(emb_err <= TOL_EMB, f"{what}: embeddings differ by {emb_err}")
+                err = same_up_to_ties(vals, idx, pv.cpu().numpy(), pi.cpu().numpy(), what)
+                inp = torch.from_numpy(fq.tokenize(texts)).to(DEVICE)
+
+                def eager():
+                    with torch.inference_mode():
+                        fq._compute(inp, k, method, dev)
+
+                graph = fq._graphs[(*inp.shape[1:], k, method, corpus_t.dtype)].graph
+                t = time.perf_counter()
+                for _ in range(10):
+                    fq.query(texts, k=k, method=method)
+                rows.append({
+                    "residency": residency, "method": method, "B": b, "k": k,
+                    "rows": inp.shape[1], "seq": inp.shape[2],
+                    "launches_per_replay": {"K1": counts["K1"], "K2": counts["K2"]},
+                    "emb_max_abs_err": emb_err, "max_abs_err": err,
+                    "query_ms": (time.perf_counter() - t) * 1e2,
+                    "replay_ms": time_ms(graph.replay),
+                    "replay_device_ms": device_ms(graph.replay),
+                    "replay_host_ms": host_ms(graph.replay),
+                    "eager_ms": time_ms(eager), "eager_device_ms": device_ms(eager),
+                    "eager_host_ms": host_ms(eager),
+                })
+                print("fused engine " + json.dumps(rows[-1]), flush=True)
+        stats = fq.stats()
+        if method == "streaming":
+            check(stats["certified"] == stats["streaming_queries"] and stats["redos"] == 0,
+                  f"fused streaming certified {stats['certified']}/"
+                  f"{stats['streaming_queries']}, {stats['redos']} redone")
+        rows[-1]["engine_stats"] = stats
+    return rows
+
+
+async def serve_fused(cfg, engine_probe):
+    """Start the port's API server with FUSED_QUERY=1 and NER model mode
+    (the environment set by the caller), send QUERIES twice timed and
+    once under torch.profiler with the default method, then once with
+    search_method "exact" (the two-step path, same server, same NER).
+    Returns the run's counts, latencies, responses and profile."""
+    import aiohttp
+    import torch
+    from aiohttp import web
+
+    from rag_icd10_tpu_torch.api.app import APIServer
+    from rag_icd10_tpu_torch.utils.metrics import metrics
+
+    server = APIServer(config=cfg, device=DEVICE)
+    runner = web.AppRunner(server.app)
+    t0 = time.perf_counter()
+    await runner.setup()  # Engine.startup: the warmup captures the graphs
+    site = web.TCPSite(runner, cfg.api.host, cfg.api.port)
+    await site.start()
+    run = {"startup_s": time.perf_counter() - t0}
+    engine = server.engine
+    fused = engine.matcher._fused
+    check(fused is not None, "FUSED_QUERY=1: the warmup built the fused engine")
+    check(engine.ner.use_model and engine.ner._model is not None,
+          f"NER model mode loaded ({engine.ner.fallback_reason})")
+    run["warmup_fused"] = fused.stats()
+    print(f"fused server up in {run['startup_s']:.1f} s; warmup captured "
+          f"{run['warmup_fused']['graphs']} graphs in "
+          f"{run['warmup_fused']['capture_s']:.2f} s", flush=True)
+    url = f"http://{cfg.api.host}:{cfg.api.port}"
+
+    async def query_pass(session, lat, out, method=None):
+        for text, top_k in QUERIES:
+            payload = {"text": text, "top_k": top_k}
+            if method:
+                payload["search_method"] = method
+            t = time.perf_counter()
+            async with session.post(url + "/query", json=payload) as resp:
+                body = await resp.json()
+                status = resp.status
+            if lat is not None:
+                lat.append((time.perf_counter() - t) * 1e3)
+            out.append((text, top_k, status, body))
+
+    run["latencies"], run["responses"] = [], []
+    run["exact_latencies"], run["exact_responses"] = [], []
+    try:
+        async with aiohttp.ClientSession() as session:
+            fused0, batch0 = fused.stats(), server.batcher.stats()
+            ner0 = engine.ner.stats()
+            zero_launch_counts()  # the fused path's requests only
+            metrics.reset()
+            for _ in range(2):
+                await query_pass(session, run["latencies"], run["responses"])
+            run["launches"] = launch_counts()
+            run["stages"] = metrics.snapshot()
+            fused1, batch1 = fused.stats(), server.batcher.stats()
+            ner1 = engine.ner.stats()
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                t = time.perf_counter()
+                await query_pass(session, None, [])
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t) * 1e3
+            metrics.reset()
+            await query_pass(session, run["exact_latencies"], run["exact_responses"], "exact")
+            run["exact_stages"] = metrics.snapshot()
+            async with session.get(url + "/stats") as resp:
+                run["stats"] = await resp.json()
+        engine_probe(engine)
+    finally:
+        await runner.cleanup()
+    run["replays"] = fused1["replays"] - fused0["replays"]
+    run["eager"] = fused1["eager"] - fused0["eager"]
+    run["graphs_after"] = fused1["graphs"]
+    run["batches"] = batch1["batches_served"] - batch0["batches_served"]
+    run["ner"] = {key: ner1[key] - ner0[key]
+                  for key in ("model_extractions", "rule_fallbacks", "model_forwards")}
+    run["ner_total"] = {key: ner1[key] for key in ("model_extractions", "rule_fallbacks")}
+    kernels = sorted(
+        ((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+         if e.self_device_time_total > 0),
+        key=lambda r: -r[1],
+    )
+    busy_ms = sum(ms for _, ms, _ in kernels)
+    run["device"] = {
+        "requests": len(QUERIES), "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "idle_share": 1.0 - busy_ms / wall_ms,
+        "k1_ms": sum(ms for key, ms, _ in kernels if "fused_score" in key),
+        "top": [{"kernel": key[:80], "ms": ms, "count": n} for key, ms, n in kernels[:8]],
+    }
+    return run
+
+
+def fused_phase(corpus, cfg, two_step):
+    """The fused + NER phase over the saved store: NER weights written and
+    held card against CPU, the FUSED_QUERY=1 server with NER model mode,
+    and the engine-level rows. ``two_step`` holds the earlier phase's
+    exact server: its p50 and stages."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from rag_icd10_tpu_torch import config as tconfig
+
+    found = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ner_dir = Path(tmp) / "ner"
+        t = time.perf_counter()
+        write_ner_weights(cfg.store.db_path + ".vocab.txt", ner_dir)
+        found["ner_write_s"] = time.perf_counter() - t
+        found["ner_card_vs_cpu"] = ner_card_vs_cpu(ner_dir)
+        print("NER card vs CPU " + json.dumps(found["ner_card_vs_cpu"]), flush=True)
+        env = {"FUSED_QUERY": "1", "NER_WEIGHTS_PATH": str(ner_dir)}
+        saved = {key: os.environ.get(key) for key in env}
+        os.environ.update(env)
+        fcfg = dataclasses.replace(
+            cfg, api=dataclasses.replace(cfg.api, port=free_port()),
+            ner=tconfig.NERConfig(use_model=True),
+        )
+
+        def probe(engine):
+            found["engine_rows"] = fused_engine_rows(engine, corpus)
+
+        try:
+            run = asyncio.run(serve_fused(fcfg, probe))
+        finally:
+            for key, value in saved.items():
+                if value is None:
+                    os.environ.pop(key, None)
+                else:
+                    os.environ[key] = value
+
+    n_req = len(run["responses"])
+    for (text, top_k, status, body), (_, _, estatus, ebody) in zip(
+            run["responses"], run["exact_responses"] * 2):
+        check(status == 200 and estatus == 200, f"fused /query {text!r}: {status} {body}")
+        cands = body["candidates"]
+        check(1 <= len(cands) <= top_k and all(np.isfinite(c["score"]) for c in cands),
+              f"fused /query {text!r}: {len(cands)} candidates")
+        same_candidates(cands, ebody["candidates"], f"fused /query {text!r} vs two-step exact")
+    stages = run["stages"]
+    check("encode+search(fused)" in stages and "encode" not in stages and "search" not in stages,
+          f"every fused request took the fused path: stages {sorted(stages)}")
+    check(stages["encode+search(fused)"]["count"] == run["batches"] == run["replays"]
+          and run["eager"] == 0,
+          f"one replay per coalesced batch: {stages['encode+search(fused)']['count']} fused "
+          f"stages, {run['batches']} batches, {run['replays']} replays, {run['eager']} eager")
+    check(run["launches"]["K1"] == run["replays"] and run["launches"]["K2"] == 0,
+          f"K1 once per replay: {run['launches']} in {run['replays']} replays")
+    check(run["device"]["k1_ms"] > 0, "the profiled fused requests ran K1 on the card")
+    check(run["ner"]["model_extractions"] > 0, "NER model-mode extractions ran")
+    check(run["ner_total"]["rule_fallbacks"] == 0,
+          f"NER fell back to rules {run['ner_total']['rule_fallbacks']} times")
+    check("fused_query" in run["stats"] and run["stats"]["ner"]["use_model"],
+          "/stats reports the fused engine and NER model mode")
+    p50 = statistics.median(run["latencies"])
+    exact_p50 = statistics.median(run["exact_latencies"])
+    fused_stage = stages["encode+search(fused)"]["p50_ms"]
+    ts = two_step["stages"]
+    two_step_ms = sum(ts[key]["p50_ms"] for key in ("encode", "search", "finalize") if key in ts)
+    summary = {
+        "query_p50_ms": p50, "query_max_ms": max(run["latencies"]),
+        "two_step_exact_p50_ms_same_server": exact_p50,
+        "two_step_exact_p50_ms_rule_ner_server": two_step["query_p50_ms"],
+        "fused_stage_p50_ms": fused_stage,
+        "two_step_encode_search_finalize_p50_ms": two_step_ms,
+        "two_step_stages": {key: ts[key]["p50_ms"] for key in ("encode", "search", "finalize")
+                            if key in ts},
+        "same_server_two_step_stages": {key: v["p50_ms"]
+                                        for key, v in run["exact_stages"].items()},
+        "idle_share": run["device"]["idle_share"], "device": run["device"],
+        "graphs": run["graphs_after"], "warmup_graphs": run["warmup_fused"]["graphs"],
+        "capture_s": run["warmup_fused"]["capture_s"], "replays": run["replays"],
+        "batches": run["batches"], "requests": n_req, "startup_s": run["startup_s"],
+        "k1_launches": run["launches"]["K1"],
+        "ner_extractions": run["ner"]["model_extractions"],
+        "ner_rule_fallbacks": run["ner_total"]["rule_fallbacks"],
+        "ner_forwards_per_request": run["ner"]["model_forwards"] / n_req,
+        "ner_ms_per_forward_bf16": found["ner_card_vs_cpu"]["bf16"]["ms_per_forward"],
+        "ner_card_vs_cpu": found["ner_card_vs_cpu"], "ner_write_s": found["ner_write_s"],
+        "stages": {key: v["p50_ms"] for key, v in stages.items()},
+    }
+    print(f"/query fused + NER: {n_req} requests, p50 {p50:.2f} ms, max "
+          f"{max(run['latencies']):.2f} ms; two-step exact on the same server p50 "
+          f"{exact_p50:.2f} ms; two-step exact (rule NER) p50 "
+          f"{two_step['query_p50_ms']:.2f} ms", flush=True)
+    print(f"encode+search(fused) p50 {fused_stage:.3f} ms against encode + search + finalize "
+          f"{two_step_ms:.3f} ms ({json.dumps(summary['two_step_stages'])}); idle share "
+          f"{run['device']['idle_share']:.4f}; {run['graphs_after']} graphs, captured in "
+          f"{run['warmup_fused']['capture_s']:.2f} s; {run['replays']} replays, K1 "
+          f"{run['launches']['K1']}; NER {summary['ner_forwards_per_request']:.2f} forwards "
+          f"per request, {summary['ner_ms_per_forward_bf16']:.3f} ms per forward", flush=True)
+    print("fused " + json.dumps(summary), flush=True)
+    return summary, found["engine_rows"]
 
 
 def main() -> int:
@@ -1318,7 +1725,15 @@ def main() -> int:
         corpus.level_weights((1.2, 1.0, 0.8)))
     sweeps["K1"] = sweep
     print("K34 threshold rows " + json.dumps(sweeps.pop("threshold")), flush=True)
-    main_path, e2e = slice_phase(corpus)
+    main_path, e2e, cfg, stages = slice_phase(corpus)
+    fused, fused_rows = fused_phase(corpus, cfg, {"query_p50_ms": e2e["query_p50_ms"],
+                                                  "stages": stages})
+    e2e["fused"] = fused
+    main_path["K1"]["launches_by_path"]["fused"] = fused["k1_launches"]
+    main_path["K1"]["fused"] = [r for r in fused_rows if r["method"] != "streaming"]
+    main_path["K2"]["launches_by_path"]["fused_streaming"] = sum(
+        r["launches_per_replay"]["K2"] for r in fused_rows)
+    main_path["K2"]["fused"] = [r for r in fused_rows if r["method"] == "streaming"]
     check(jax_before or sys.modules.get("jax") is None, "the port imported JAX")
     check(not any(m == "rag_icd10_tpu" or m.startswith("rag_icd10_tpu.")
                   for m in sys.modules), "the port imported the JAX package")
@@ -1349,8 +1764,8 @@ def main() -> int:
                       if key in row},
             **({"main_batches": row["batches"]} if "batches" in row else {}),
             **({"threshold": k1_threshold} if kid == "K1" else {}),
-            **{key: row[key] for key in ("launches_by_path", "chunk_select", "bf16_rerank")
-               if key in row},
+            **{key: row[key] for key in ("launches_by_path", "chunk_select", "bf16_rerank",
+                                         "fused") if key in row},
             "sweep": sweeps[kid],
         })
     e2e["sketch_1M"] = sketch_large

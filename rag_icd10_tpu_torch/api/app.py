@@ -482,6 +482,12 @@ class APIServer:
                 stats["batching"] = self.batcher.stats()
             from ..utils.metrics import metrics, profiler
 
+            if self.engine.ner is not None:
+                # model extractions and fallbacks to rules
+                stats["ner"] = self.engine.ner.stats()
+            fused = getattr(self.engine.matcher, "_fused", None)
+            if fused is not None:  # FUSED_QUERY=1: graphs, replays, redos
+                stats["fused_query"] = fused.stats()
             stats["stage_latency"] = metrics.snapshot()
             stats["profiler_active"] = profiler.active
             stats["uptime_s"] = round(time.time() - self.engine.started_at, 1)

@@ -36,7 +36,7 @@ reference MilvusService (services/milvus_service.py): ``insert_records``
 - No shape bucketing: PyTorch runs eagerly and the kernel masks ragged
   edges, so queries go in at their own batch size and top-k at k. The
   approximate tiers over-fetch from the JAX store's k grid
-  (``_fetch_k``), so both fetch the same candidates.
+  (``_bucket_k``), so both fetch the same candidates.
 """
 
 from __future__ import annotations
@@ -66,8 +66,9 @@ SERVED_METHODS = (
 )
 RESIDENCIES = ("float32", "bfloat16", "int8", "host")
 #: the JAX store's k grid (its jit shape buckets); the approximate tiers
-#: over-fetch from it so both stores fetch the same candidates
-_K_GRID = (8, 16, 32, 64, 128)
+#: over-fetch from it so both stores fetch the same candidates, and the
+#: fused engine (ops/fused_query.py) captures one graph per bucket
+_K_BUCKETS = (8, 16, 32, 64, 128)
 #: CHUNKSTREAM_SCAN grammar, engine[_dtype] -> (chunk_stream scan engine,
 #: stored scan dtype). The pallas* values run the chunk-max kernels over an
 #: fp32, bf16 or int8 store; xla, xla_high, bf16 and int8 are the JAX
@@ -84,10 +85,10 @@ CHUNKSTREAM_SCANS = {
 }
 
 
-def _fetch_k(k: int) -> int:
+def _bucket_k(k: int) -> int:
     """The smallest k of the JAX store's grid that holds k (its largest
     above 128)."""
-    return next((g for g in _K_GRID if k <= g), _K_GRID[-1])
+    return next((g for g in _K_BUCKETS if k <= g), _K_BUCKETS[-1])
 
 
 def _not_ported(what: str) -> ValueError:
@@ -578,7 +579,7 @@ class VectorStore:
         dev = self._dev
         args = (q, dev["corpus_q"], dev["scale"], dev["weights"], dev["mask"])
         select = "approx" if method == "approx" else "exact"
-        kg = _fetch_k(k)
+        kg = _bucket_k(k)
         if self.config.int8_rerank == "device":
             vals, idx = int8_search_device_rerank(
                 *args, k=k, m=max(4 * kg, kg + 16), method=select

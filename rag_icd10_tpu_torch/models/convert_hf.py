@@ -1,12 +1,20 @@
-"""Encoder weights: the JAX package's parameter tree <-> PyTorch state dict.
+"""BERT weights: HF checkpoints and the JAX package's parameter tree <->
+PyTorch state dict.
 
-Both packages persist encoder weights as one flat ``.npz`` whose keys are
-the parameter-tree paths joined with '/' (rag_icd10_tpu/models/
+Both packages persist weights as one flat ``.npz`` whose keys are the
+parameter-tree paths joined with '/' (rag_icd10_tpu/models/
 convert_hf.py:90-116), so a weights file written for one loads in the
-other. ``params_from_jax`` carries such a tree (numpy arrays, or the JAX
-package's own arrays) into ``SentenceBert``'s state dict: flax ``Dense``
-kernels are stored (in, out) and are transposed to ``nn.Linear``'s
-(out, in); embeddings and LayerNorm ``scale``/``bias`` are renamed.
+other.
+
+- ``convert_state_dict`` / ``convert_model_dir`` map an HF ``BertModel``
+  (or ``BertFor*``) checkpoint to that tree, as the JAX package's
+  converter does (:20-88), from a local directory holding
+  ``pytorch_model.bin`` or ``model.safetensors``: no network access.
+- ``params_from_jax`` carries such a tree (numpy arrays, or the JAX
+  package's own arrays) into ``SentenceBert``'s state dict, or a token
+  classifier's when the tree has a ``classifier`` head: flax ``Dense``
+  kernels are stored (in, out) and are transposed to ``nn.Linear``'s
+  (out, in); embeddings and LayerNorm ``scale``/``bias`` are renamed.
 """
 
 from __future__ import annotations
@@ -16,6 +24,95 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from .bert import BertArch
+
+
+def arch_from_config(config: Dict, compute_dtype=torch.bfloat16) -> BertArch:
+    """BertArch of an HF ``config.json`` (the JAX package's defaults for
+    missing keys)."""
+    return BertArch(
+        vocab_size=config.get("vocab_size", 21128),
+        hidden_size=config.get("hidden_size", 768),
+        num_layers=config.get("num_hidden_layers", 12),
+        num_heads=config.get("num_attention_heads", 12),
+        intermediate_size=config.get("intermediate_size", 3072),
+        max_position_embeddings=config.get("max_position_embeddings", 512),
+        compute_dtype=compute_dtype,
+    )
+
+
+def convert_state_dict(state_dict: Dict[str, np.ndarray], arch: BertArch) -> Dict:
+    """Map an HF BertModel state_dict (numpy arrays) to the parameter tree
+    ({"bert": {...}}, flax layout)."""
+
+    def npy(key):
+        return np.asarray(state_dict[key], dtype=np.float32)
+
+    def dense(prefix):
+        return {"kernel": npy(f"{prefix}.weight").T, "bias": npy(f"{prefix}.bias")}
+
+    def ln(prefix):
+        return {"scale": npy(f"{prefix}.weight"), "bias": npy(f"{prefix}.bias")}
+
+    # tolerate a leading "bert." (BertModel inside BertForX) prefix
+    if not any(k.startswith("embeddings.") for k in state_dict):
+        state_dict = {
+            k.split(".", 1)[1]: v for k, v in state_dict.items() if "." in k
+        }
+
+    bert: Dict = {
+        "word_embeddings": {"embedding": npy("embeddings.word_embeddings.weight")},
+        "position_embeddings": {
+            "embedding": npy("embeddings.position_embeddings.weight")
+        },
+        "token_type_embeddings": {
+            "embedding": npy("embeddings.token_type_embeddings.weight")
+        },
+        "embeddings_ln": ln("embeddings.LayerNorm"),
+    }
+    for i in range(arch.num_layers):
+        p = f"encoder.layer.{i}"
+        bert[f"layer_{i}"] = {
+            "attention": {
+                "query": dense(f"{p}.attention.self.query"),
+                "key": dense(f"{p}.attention.self.key"),
+                "value": dense(f"{p}.attention.self.value"),
+                "out": dense(f"{p}.attention.output.dense"),
+            },
+            "attention_ln": ln(f"{p}.attention.output.LayerNorm"),
+            "intermediate": dense(f"{p}.intermediate.dense"),
+            "output": dense(f"{p}.output.dense"),
+            "output_ln": ln(f"{p}.output.LayerNorm"),
+        }
+    return {"bert": bert}
+
+
+def load_torch_state_dict(model_dir: str) -> Dict[str, np.ndarray]:
+    """Read model.safetensors (where the ``safetensors`` package imports)
+    or pytorch_model.bin from a local dir, as numpy arrays."""
+    d = Path(model_dir)
+    st_path = d / "model.safetensors"
+    if st_path.exists():
+        try:
+            from safetensors.numpy import load_file
+
+            return load_file(str(st_path))
+        except ImportError:
+            pass
+    bin_path = d / "pytorch_model.bin"
+    if bin_path.exists():
+        sd = torch.load(str(bin_path), map_location="cpu", weights_only=True)
+        # bf16 has no numpy dtype; every float is read as fp32 anyway
+        return {
+            k: (v.float() if v.is_floating_point() else v).numpy()
+            for k, v in sd.items()
+        }
+    raise FileNotFoundError(f"no model weights found under {model_dir}")
+
+
+def convert_model_dir(model_dir: str, arch: BertArch) -> Dict:
+    return convert_state_dict(load_torch_state_dict(model_dir), arch)
 
 
 def save_params(params: Dict, path: str) -> None:
@@ -48,8 +145,9 @@ def load_params(path: str) -> Dict:
 
 
 def params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
-    """JAX-layout param tree ({"bert": {...}}) -> ``SentenceBert`` state
-    dict of fp32 tensors."""
+    """JAX-layout param tree ({"bert": {...}}, and a ``classifier`` Dense
+    for a token classifier) -> ``SentenceBert`` (or ``TokenClassifier``)
+    state dict of fp32 tensors."""
     bert = params["bert"]
 
     def t(x) -> torch.Tensor:
@@ -79,4 +177,6 @@ def params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
         sd.update(dense(layer["intermediate"], f"{p}.intermediate"))
         sd.update(dense(layer["output"], f"{p}.output"))
         sd.update(ln(layer["output_ln"], f"{p}.output_ln"))
+    if "classifier" in params:  # flax Dense (H, L) -> nn.Linear (L, H)
+        sd.update(dense(params["classifier"], "classifier"))
     return sd

@@ -277,6 +277,26 @@ def fused_search(
 fused_search.streaming_over_k_max = 0
 
 
+def launch_counts() -> Tuple[int, int, int]:
+    """(K1 launches, K2 launches, ``fused_search.streaming_over_k_max``)."""
+    with _launch_lock:
+        return (
+            fused_weighted_scores.launches,
+            streaming_candidates.launches,
+            fused_search.streaming_over_k_max,
+        )
+
+
+def add_launch_counts(k1: int = 0, k2: int = 0, over_k_max: int = 0) -> None:
+    """Add launches the wrappers could not count themselves: a CUDA graph
+    replays the kernels its capture recorded, while the capture moved the
+    counts and launched nothing (ops/fused_query.py)."""
+    with _launch_lock:
+        fused_weighted_scores.launches += k1
+        streaming_candidates.launches += k2
+        fused_search.streaming_over_k_max += over_k_max
+
+
 # ---------------------------------------------------------------------------
 # Streaming top-k (K2). The contract is the JAX package's: a candidate set
 # plus a sound bound on every corpus row outside it. The slot layout is the

@@ -36,6 +36,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..utils.device import reraise_device_error
+
 DELIMITER_PRIORITY: Tuple[Tuple[str, int], ...] = (
     ("；", 1), (";", 1),
     ("。", 2), (".", 2),
@@ -256,7 +258,8 @@ class SemanticBoundaryDetector:
             try:
                 embs = np.asarray(self.encoder.encode_queries(texts))
                 sims = np.sum(embs[:-1] * embs[1:], axis=1)  # consecutive cos
-            except Exception:
+            except Exception as e:
+                reraise_device_error(e)  # a failing card never degrades
                 sims = None
         confidences = []
         for i, text in enumerate(texts):

@@ -36,6 +36,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..utils.device import reraise_device_error
+
 FACTOR_WEIGHTS_DEFAULT = {
     "vector_similarity": 0.20,
     "hierarchy_boost": 0.15,
@@ -236,7 +238,8 @@ class MultiDimensionalConfidenceService:
             factors.cross_validation_score = self._cross_validation(candidate_records)
             metrics = self._final_metrics(factors, candidate_records)
             return metrics, factors
-        except Exception:
+        except Exception as e:
+            reraise_device_error(e)  # a failing card never degrades
             return ConfidenceMetrics(overall_confidence=0.5), ConfidenceFactors()
 
     # ------------------------------------------------------ factor helpers
@@ -262,7 +265,8 @@ class MultiDimensionalConfidenceService:
                     )
                 )
                 return float(max(np.dot(vecs[0], vecs[1]), 0.0))
-            except Exception:
+            except Exception as e:
+                reraise_device_error(e)  # a failing card never degrades
                 return 0.0
         return 0.0
 
@@ -337,7 +341,8 @@ class MultiDimensionalConfidenceService:
                     query_text, candidate_text, query_entities
                 )
             return self._terminology_accuracy_fallback(query_text, candidate_text)
-        except Exception:
+        except Exception as e:
+            reraise_device_error(e)  # a failing card never degrades
             return 0.5
 
     def _terminology_accuracy_ner(
@@ -431,7 +436,8 @@ class MultiDimensionalConfidenceService:
                     if total > 0:
                         return min(ssum / total, 1.0)
             return self._professional_specificity_fallback(query_text)
-        except Exception:
+        except Exception as e:
+            reraise_device_error(e)  # a failing card never degrades
             return 0.5
 
     @staticmethod

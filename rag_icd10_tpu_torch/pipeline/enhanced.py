@@ -36,6 +36,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..utils.device import reraise_device_error
 from .boundary import SemanticBoundaryDetector
 from .ner import MedicalNERService
 
@@ -148,7 +149,8 @@ class EnhancedTextProcessor:
                 text, entities, boundaries, confs, allow_subsplit=not exact
             )
             return self._filter_and_rank(fused)
-        except Exception:
+        except Exception as e:
+            reraise_device_error(e)  # a failing card never degrades
             return self._fallback_extraction(text)
 
     def extract_many(
@@ -183,13 +185,15 @@ class EnhancedTextProcessor:
                 if len(boundaries) > 1:
                     all_segments.extend(b[2] for b in boundaries)
                 prepared.append((text, entities, boundaries, offset, exact))
-            except Exception:
+            except Exception as e:
+                reraise_device_error(e)  # a failing card never degrades
                 prepared.append(("__fallback__", text))
         embs = None
         if all_segments and self.encoder is not None:
             try:
                 embs = np.asarray(self.encoder.encode_queries(all_segments))
-            except Exception:
+            except Exception as e:
+                reraise_device_error(e)  # a failing card never degrades
                 embs = None
         results: List[List[Dict[str, Any]]] = []
         for item in prepared:
@@ -216,7 +220,8 @@ class EnhancedTextProcessor:
                     text, entities, boundaries, confs, allow_subsplit=not exact
                 )
                 results.append(self._filter_and_rank(fused))
-            except Exception:
+            except Exception as e:
+                reraise_device_error(e)  # a failing card never degrades
                 results.append(self._fallback_extraction(text))
         return results
 

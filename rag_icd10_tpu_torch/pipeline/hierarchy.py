@@ -37,6 +37,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..utils.device import reraise_device_error
 from .uncertainty import process_uncertainty_query
 
 FACTOR_WEIGHTS_DEFAULT = {
@@ -354,7 +355,8 @@ class HierarchicalSimilarityService:
             if is_exact:
                 score = max(score, EXACT_MATCH_FLOOR)
             return float(score), factors
-        except Exception:
+        except Exception as e:
+            reraise_device_error(e)  # a failing card never degrades
             return float(record.get("score", 0.0)), factors
 
     def batch_calculate_similarities(
@@ -388,7 +390,8 @@ class HierarchicalSimilarityService:
                 )
                 enhanced["similarity_factors"] = factors
                 results.append((enhanced, score, factors))
-            except Exception:
+            except Exception as e:
+                reraise_device_error(e)  # a failing card never degrades
                 results.append(
                     (record, float(record.get("score", 0.0)), SimilarityFactors())
                 )

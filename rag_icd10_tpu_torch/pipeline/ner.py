@@ -1,13 +1,16 @@
-"""Medical NER — rule-based extraction (the model mode is not yet ported).
+"""Medical NER — rule-based extraction with an optional PyTorch model mode.
 
 Behavioral spec (reference: services/medical_ner_service.py):
 - Two modes: HF token-classification model (:62-101) with 15-label map
-  (:43-59) and rule fallback (:103-141). The JAX package runs the model
-  mode as a token classifier over converted weights (env
-  NER_WEIGHTS_PATH); this package has not ported that classifier yet, so
-  setting NER_WEIGHTS_PATH raises instead of silently serving rules.
-  With no weights configured it uses rule mode — the same degradation the
-  reference performs when the HF download fails (:94-101).
+  (:43-59) and rule fallback (:103-141). Here the model mode runs the
+  port's token classifier (pipeline/ner_model.py, converted weights, env
+  NER_WEIGHTS_PATH) on the service's device; when no weights are set or
+  the weights directory cannot be read it uses rule mode — the same
+  graceful degradation the reference performs when the HF download fails
+  (:94-101). A failure of the card never degrades: it raises
+  (utils/device.py ``is_device_error``). Model extractions and
+  extractions that fell back to rules while model mode was asked for are
+  counted (``stats``, shown in /stats).
 - Rule patterns for disease/symptom/anatomy with stop words and
   meaningless-phrase filters (:103-141, :281-295).
 - Rule confidence heuristic: base 0.5 + length bonuses + type-specific
@@ -23,11 +26,18 @@ Behavioral spec (reference: services/medical_ner_service.py):
 
 from __future__ import annotations
 
+import logging
 import re
-from typing import Any, Dict, List, Optional
+import threading
+from typing import Any, Dict, List, Optional, Union
+
+import torch
 
 from ..config import NERConfig
+from ..utils.device import is_device_error
 from .entity_filter import DiagnosisEntityFilter
+
+logger = logging.getLogger("rag_icd10_tpu_torch.ner")
 
 # Model label -> standard entity type (reference :43-59)
 ENTITY_TYPE_MAPPING = {
@@ -148,35 +158,54 @@ def _dedup_overlapping(entities: List[Dict]) -> List[Dict]:
 
 
 class MedicalNERService:
-    """Rule-based NER; the token-classifier mode is not yet ported."""
+    """Rule-based NER with optional PyTorch token-classifier mode. The
+    classifier runs on ``cuda`` unless ``device="cpu"`` is passed."""
 
     def __init__(
         self,
         config: Optional[NERConfig] = None,
         entity_filter: Optional[DiagnosisEntityFilter] = None,
+        device: Union[str, torch.device] = "cuda",
     ):
         self.config = config or NERConfig()
         self.entity_filter = entity_filter or DiagnosisEntityFilter()
+        self.device = device
         self.use_model = self.config.use_model
         self._model = None
+        # model extractions; extractions served by rules while model mode
+        # was asked for (no weights, unreadable weights, a failed predict)
+        self._counts = {"model_extractions": 0, "rule_fallbacks": 0}
+        self._counts_lock = threading.Lock()
+        self.fallback_reason: Optional[str] = None
         if self.use_model:
             self._init_model()
 
     def _init_model(self) -> None:
-        """Rule mode when no classifier weights are configured (mirrors the
-        reference's fallback, medical_ner_service.py:94-101). Configured
-        weights raise: the token classifier is not yet ported, and serving
-        rules in its place would change results without a word."""
+        """Load the token classifier if converted weights exist; else
+        degrade to rule mode (mirrors the reference's fallback,
+        medical_ner_service.py:94-101). A device error raises."""
         import os
 
         weights = os.getenv("NER_WEIGHTS_PATH")
         if not weights:
             self.use_model = False
+            self.fallback_reason = "NER_WEIGHTS_PATH not set"
             return
-        raise NotImplementedError(
-            f"NER model mode (NER_WEIGHTS_PATH={weights}) not yet ported to "
-            "rag_icd10_tpu_torch; unset NER_WEIGHTS_PATH to serve rule mode"
-        )
+        try:
+            from .ner_model import TorchTokenClassifier
+
+            self._model = TorchTokenClassifier.from_weights(weights, device=self.device)
+        except Exception as e:
+            if is_device_error(e):
+                raise
+            logger.warning("NER weights %s unreadable (%s): rule mode", weights, e)
+            self.use_model = False
+            self._model = None
+            self.fallback_reason = f"weights unreadable: {type(e).__name__}: {e}"
+
+    def _count(self, key: str) -> None:
+        with self._counts_lock:
+            self._counts[key] += 1
 
     # ------------------------------------------------------------ public
 
@@ -185,7 +214,20 @@ class MedicalNERService:
     ) -> Dict[str, List[Dict[str, Any]]]:
         if not text or not text.strip():
             return {}
-        entities = self._extract_with_rules(text)
+        if self.use_model and self._model is not None:
+            try:
+                entities = self._extract_with_model(text)
+                self._count("model_extractions")
+            except Exception as e:
+                if is_device_error(e):
+                    raise
+                logger.warning("NER model failed (%s): rules for this text", e)
+                entities = self._extract_with_rules(text)
+                self._count("rule_fallbacks")
+        else:
+            entities = self._extract_with_rules(text)
+            if self.config.use_model:
+                self._count("rule_fallbacks")
         if filter_drugs:
             entities = self.entity_filter.filter_entities(entities, text)
         return entities
@@ -209,6 +251,30 @@ class MedicalNERService:
                             }
                         )
             entities[etype] = _dedup_overlapping(found)
+        return entities
+
+    def _extract_with_model(self, text: str) -> Dict[str, List[Dict[str, Any]]]:
+        spans = self._model.predict(text)  # [(text, label, score, start, end)]
+        entities: Dict[str, List[Dict[str, Any]]] = {}
+        for etext, label, score, start, end in spans:
+            etext = etext.replace(" ", "").replace("##", "")
+            if not etext or len(etext) < 2:
+                continue
+            if score < self.config.min_confidence or etext in STOP_WORDS:
+                continue
+            std = ENTITY_TYPE_MAPPING.get(label, "other")
+            entities.setdefault(std, []).append(
+                {
+                    "text": etext,
+                    "start": start,
+                    "end": end,
+                    "confidence": float(score),
+                    "original_label": label,
+                    "source": "model",
+                }
+            )
+        for etype in entities:
+            entities[etype] = _dedup_overlapping(entities[etype])
         return entities
 
     def identify_diagnosis_keywords(self, text: str) -> List[str]:
@@ -238,7 +304,23 @@ class MedicalNERService:
                 else list(RULE_PATTERNS.keys())
             ),
             "fallback_available": True,
-            "device": "CPU",
+            "device": str(self._model.device) if self._model is not None else "CPU",
+        }
+
+    def counts(self) -> Dict[str, int]:
+        """Model extractions and fallbacks to rules so far."""
+        with self._counts_lock:
+            return dict(self._counts)
+
+    def stats(self) -> Dict[str, Any]:
+        """``get_model_info`` (whose keys the reference's /entities contract
+        fixes) plus the counts, the classifier's forwards and why model
+        mode fell back, for /stats."""
+        return {
+            **self.get_model_info(),
+            **self.counts(),
+            "model_forwards": self._model.forwards if self._model is not None else 0,
+            "fallback_reason": self.fallback_reason,
         }
 
     def get_entity_summary(self, text: str) -> Dict[str, Any]:

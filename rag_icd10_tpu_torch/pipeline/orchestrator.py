@@ -30,6 +30,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..utils.device import reraise_device_error
 from .confidence import (
     ConfidenceFactors,
     ConfidenceMetrics,
@@ -168,17 +169,51 @@ class MultiDiagnosisService:
             encoder=encoder, ner_service=self.ner_service, store=store
         )
         self.overfetch = overfetch
-        if os.getenv("FUSED_QUERY", "0").lower() in ("1", "true", "yes"):
-            # the JAX package's fused encode+search program
-            # (ops/fused_query.py) needs the scoring and streaming kernels
-            raise NotImplementedError(
-                "FUSED_QUERY=1 (fused encode+search) not yet ported to "
-                "rag_icd10_tpu_torch; unset FUSED_QUERY"
-            )
+        self._fused = None
         self._rescore_executor: Any = False  # False = not yet sized
         import threading
 
         self._rescore_lock = threading.Lock()
+
+    def _fused_engine(self):
+        """Lazily build the fused encode+search engine when supported.
+
+        Opt-in (FUSED_QUERY=1): tokens->embed->score->top-k become one
+        CUDA graph replay per (rows, seq, k) bucket (ops/fused_query.py),
+        each bucket captured at its first use (the runtime's warmup
+        covers the served ones).
+        """
+        if os.getenv("FUSED_QUERY", "0").lower() not in ("1", "true", "yes"):
+            return None
+        from ..ops.fused_query import FusedQueryEngine
+
+        if (
+            self.store is not None
+            and not self.store.is_loaded
+            and self.store.config.index_type.upper() == "FLAT"
+            and self.store.num_entities
+        ):
+            # fused path needs device-resident arrays; try to load once
+            try:
+                self.store.load_collection()
+            except Exception as e:
+                reraise_device_error(e)
+                return None
+        if self._fused is not None and (
+            self._fused.store is not self.store
+            or self._fused.encoder is not self.encoder
+        ):
+            # encoder/store object was swapped (e.g. resource reload built a
+            # fresh store) — drop the engine bound to the old objects
+            self._fused = None
+        if self._fused is not None and FusedQueryEngine.supports(
+            self.encoder, self.store
+        ):
+            return self._fused
+        if FusedQueryEngine.supports(self.encoder, self.store):
+            self._fused = FusedQueryEngine(self.encoder, self.store)
+            return self._fused
+        return None
 
     # ------------------------------------------------------------- public
 
@@ -272,7 +307,10 @@ class MultiDiagnosisService:
         flat_diagnoses = state["flat_diagnoses"]
 
         # === the batched hot path ===
-        # ONE encoder forward + ONE fused search for all sub-diagnoses.
+        # Preferred (FUSED_QUERY=1): ONE CUDA graph replay (tokens ->
+        # embeddings -> weighted scores -> top-k); else separate encode +
+        # search device calls (mock encoders, HNSW stores, int8 and host
+        # residency, released collections).
         #
         # Documented divergence: retrieval ENCODES uncertainty-stripped
         # text. The reference embeds the raw fragment ("考虑弹响膝") and
@@ -292,52 +330,73 @@ class MultiDiagnosisService:
                 clean_for_encoding(d, known_titles=titles)
                 for d in flat_diagnoses
             ]
+            # per-request search overrides force the two-step path: the
+            # fused graph bakes in the FLAT method, and HNSW/ef knobs are
+            # host-side concepts
+            fused = (
+                self._fused_engine()
+                if search_method is None and ef_search is None
+                else None
+            )
             k_fetch = top_k * self.overfetch
-            # keep the embeddings ON DEVICE between encode and search
-            # when both sides support it — skipping the host download
-            # + re-upload saves a host<->device round trip per coalesced
-            # batch; the host copy for rescoring downloads after the
-            # search has been issued
-            device_chain = getattr(
-                self.encoder, "encode_queries_device", None
-            ) is not None and getattr(
-                self.store, "accepts_device_queries", False
-            )
-            with metrics.timer("encode"):
-                if device_chain:
-                    query_dev = self.encoder.encode_queries_device(
-                        encode_texts
+            if fused is not None:
+                with metrics.timer("encode+search(fused)"):
+                    k_eff = min(max(k_fetch, 1), self.store.num_entities)
+                    from ..index.vector_store import _bucket_k
+
+                    query_vecs, vals, idx = fused.query(
+                        encode_texts, k=_bucket_k(k_eff),
+                        method=self.store.config.search_method,
                     )
-                else:
-                    query_vecs = np.asarray(
-                        self.encoder.encode_queries(encode_texts)
+                    all_hits = self.store.build_hits(
+                        vals[:, :k_eff], idx[:, :k_eff]
                     )
-            knob_kwargs = (
-                {}
-                if (search_method is None and ef_search is None)
-                or not _store_knob_aware(self.store)
-                else {"method": search_method, "ef_search": ef_search}
-            )
-            dispatch = getattr(self.store, "search_dispatch", None)
-            q_in = query_dev if device_chain else query_vecs
-            if dispatch is not None:
-                # non-blocking: issue the device program and return —
-                # every result fetch (embeddings download, top-k
-                # arrays, hit building) moves into
-                # rescore_stage's finalize step, so the device/dispatch
-                # thread is free to feed batch n+1 while batch n
-                # executes and downloads (api/batching.py overlap)
+            else:
+                # keep the embeddings ON DEVICE between encode and search
+                # when both sides support it — skipping the host download
+                # + re-upload saves a host<->device round trip per coalesced
+                # batch; the host copy for rescoring downloads after the
+                # search has been issued
+                device_chain = getattr(
+                    self.encoder, "encode_queries_device", None
+                ) is not None and getattr(
+                    self.store, "accepts_device_queries", False
+                )
+                with metrics.timer("encode"):
+                    if device_chain:
+                        query_dev = self.encoder.encode_queries_device(
+                            encode_texts
+                        )
+                    else:
+                        query_vecs = np.asarray(
+                            self.encoder.encode_queries(encode_texts)
+                        )
+                knob_kwargs = (
+                    {}
+                    if (search_method is None and ef_search is None)
+                    or not _store_knob_aware(self.store)
+                    else {"method": search_method, "ef_search": ef_search}
+                )
+                dispatch = getattr(self.store, "search_dispatch", None)
+                q_in = query_dev if device_chain else query_vecs
+                if dispatch is not None:
+                    # non-blocking: issue the device program and return —
+                    # every result fetch (embeddings download, top-k
+                    # arrays, hit building) moves into
+                    # rescore_stage's finalize step, so the device/dispatch
+                    # thread is free to feed batch n+1 while batch n
+                    # executes and downloads (api/batching.py overlap)
+                    with metrics.timer("search"):
+                        state["pending_search"] = dispatch(
+                            q_in, k_fetch, **knob_kwargs
+                        )
+                    state["query_pending"] = q_in
+                    state["encode_texts"] = encode_texts
+                    return state
                 with metrics.timer("search"):
-                    state["pending_search"] = dispatch(
-                        q_in, k_fetch, **knob_kwargs
-                    )
-                state["query_pending"] = q_in
-                state["encode_texts"] = encode_texts
-                return state
-            with metrics.timer("search"):
-                all_hits = self.store.search(q_in, k_fetch, **knob_kwargs)
-                if device_chain:
-                    query_vecs = _host(query_dev)
+                    all_hits = self.store.search(q_in, k_fetch, **knob_kwargs)
+                    if device_chain:
+                        query_vecs = _host(query_dev)
         else:
             query_vecs, all_hits = np.zeros((0, 1)), []
         if flat_diagnoses:
@@ -350,7 +409,8 @@ class MultiDiagnosisService:
         """Materialize a deferred device stage (PendingSearch): block on
         the downloads, apply exact-title injection, and populate the
         query_vecs/all_hits the rescore stage consumes. No-op when the
-        device stage ran eagerly (mock stores, empty batch)."""
+        device stage ran eagerly (mock stores, fused engine, empty
+        batch)."""
         pending = state.pop("pending_search", None)
         if pending is None:
             return
@@ -573,7 +633,8 @@ class MultiDiagnosisService:
                     match_confidence
                 ),
             )
-        except Exception:
+        except Exception as e:
+            reraise_device_error(e)  # a failing card never degrades
             return self._match_plain(diagnosis, query_vec, hits, top_k)
 
     def _match_plain(
@@ -602,7 +663,8 @@ class MultiDiagnosisService:
                 candidates=candidates,
                 match_confidence=self._calculate_match_confidence(candidates),
             )
-        except Exception:
+        except Exception as e:
+            reraise_device_error(e)  # a failing card never degrades
             return DiagnosisMatch(
                 diagnosis_text=diagnosis, candidates=[], match_confidence=0.0
             )

@@ -170,7 +170,7 @@ class Engine:
         if self.matcher is None:
             encoder = self.init_encoder()
             store = self.init_store()
-            self.ner = MedicalNERService(self.config.ner)
+            self.ner = MedicalNERService(self.config.ner, device=self.device)
             self.matcher = MultiDiagnosisService(
                 encoder=encoder,
                 store=store,
@@ -204,8 +204,10 @@ class Engine:
         sizes) before the first user request: the first launches pay
         cuBLAS handle creation, allocator growth and the kernel library's
         load. Covers every power-of-two coalesced-batch bucket the batcher
-        can produce up to max_batch, for both common top_k values. A
-        failure here is a failure of the serving path and propagates."""
+        can produce up to max_batch, for both common top_k values; under
+        FUSED_QUERY=1 that captures the fused engine's graphs for those
+        buckets, so no request pays for a capture. A failure here is a
+        failure of the serving path and propagates."""
         t0 = time.time()
         logger.info("warmup: running serving shapes...")
         for text in ("急性胃肠炎", "急性胃肠炎，高血压病3级，2型糖尿病"):
@@ -225,6 +227,13 @@ class Engine:
             batch = (seeds * ((size // len(seeds)) + 1))[:size]
             for top_k in (5, 10):
                 self.matcher.match_many_texts(batch, top_k=top_k)
+        fused = self.matcher._fused
+        if fused is not None:  # FUSED_QUERY=1: the warmup captured its graphs
+            stats = fused.stats()
+            logger.info(
+                "warmup: fused query captured %d CUDA graphs in %.1fs",
+                stats["graphs"], stats["capture_s"],
+            )
         self._warmup_extra_methods([1] + sizes)
         logger.info("warmup done in %.0fs", time.time() - t0)
 

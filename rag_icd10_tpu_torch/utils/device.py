@@ -22,3 +22,22 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
             "False; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def is_device_error(exc: BaseException) -> bool:
+    """True for a failure of the card or the CUDA runtime: a refused or
+    failed kernel launch, a device-side assert, device memory exhausted,
+    or ``cuda`` asked for with no card. Such an error raises where the JAX
+    package would degrade (NER model mode to rules, a scoring helper to
+    its default): serving on regardless would hide a broken device."""
+    accelerator_error = getattr(torch, "AcceleratorError", None)
+    if accelerator_error is not None and isinstance(exc, accelerator_error):
+        return True
+    return isinstance(exc, RuntimeError) and "cuda" in str(exc).lower()
+
+
+def reraise_device_error(exc: BaseException) -> None:
+    """Raise ``exc`` again if it is a device error: for the handlers that
+    degrade a scoring or extraction step on any other failure."""
+    if is_device_error(exc):
+        raise exc

@@ -349,19 +349,31 @@ def test_golden_fixture_through_port(mock_client, name, path, payload):
 
 
 def test_unported_modes_raise_at_startup(monkeypatch):
-    """Modes the port does not serve yet (NER model mode, FUSED_QUERY) fail
-    loudly where they are configured, instead of silently serving
-    something else. STORE_MODE=remote, which raised here until the port's
-    third slice, builds the port's remote client (its parity tests are
-    tests/test_torch_remote_store.py)."""
+    """What the port does not serve yet (STORE_SHARDED=on) fails loudly
+    where it is configured, instead of silently serving something else.
+    NER model mode and FUSED_QUERY, which raised here until the port's
+    fourth slice, now run (tests/test_torch_ner_model.py and
+    tests/test_torch_fused_query.py): weights that cannot be read degrade
+    to rules as in the JAX package, and count the fallback; FUSED_QUERY
+    with the mock encoder takes the two-step path. STORE_MODE=remote
+    builds the port's remote client (tests/test_torch_remote_store.py)."""
     monkeypatch.setenv("NER_WEIGHTS_PATH", "/nonexistent/ner.npz")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        MedicalNERService(tconfig.NERConfig(use_model=True))
+    ner = MedicalNERService(tconfig.NERConfig(use_model=True), device="cpu")
+    assert not ner.use_model and "unreadable" in ner.fallback_reason
+    ner.extract_medical_entities("急性胃肠炎")
+    assert ner.counts() == {"model_extractions": 0, "rule_fallbacks": 1}
     monkeypatch.delenv("NER_WEIGHTS_PATH")
     monkeypatch.setenv("FUSED_QUERY", "1")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        _mock_engine()
+    engine = _mock_engine()
+    assert engine.matcher._fused_engine() is None
+    assert engine.matcher.match_multiple_diagnoses("急性胃肠炎")["total_matches"] > 0
     monkeypatch.delenv("FUSED_QUERY")
+    sharded = VectorStore(
+        dim=64, config=tconfig.StoreConfig(pad_multiple=128, sharded="on"), device="cpu"
+    )
+    sharded.insert_records(list(engine.store.corpus.records()), engine.store._vectors)
+    with pytest.raises(ValueError, match="not yet ported"):
+        sharded.load_collection()
     engine = Engine(
         tconfig.Config(store=tconfig.StoreConfig(
             mode="remote", server_url="http://127.0.0.1:1")),
