@@ -32,11 +32,15 @@
    times both paths forced, each held against the plain version; one
    more K5 row re-scores a batch of 64 near-identical queries (k = 100),
    whose pairs nearly all share chunks.
-4. Slice phase: embeds a 40,474-row synthetic ICD corpus with a
-   full-width BERT-base encoder (12 layers, 768 hidden, 12 heads, 3072
-   intermediate, vocab 21128, bf16, seeded random weights), saves the
-   store, starts the port's API server on 127.0.0.1 over it (fp32
-   residency on the card) and sends /query requests: the 8 QUERIES with
+4. Slice phase: writes a 40,474-row synthetic ICD corpus to a CSV in a
+   temporary directory and builds the store with the port's
+   DatabaseBuilder (tools/build_database.py) and a full-width BERT-base
+   encoder (12 layers, 768 hidden, 12 heads, 3072 intermediate, vocab
+   21128, bf16, seeded random weights), printing its texts/s and
+   seconds, then runs verify_database; starts the port's API server on
+   127.0.0.1 over the built store (fp32 residency on the card, with
+   STORE_SHARDED=on, which must serve unsharded on one card: fault F3)
+   and sends /query requests: the 8 QUERIES with
    the default method (exact), then with search_method "streaming" and
    "chunkstream". Every request must answer 200 with candidates; the
    certified methods must give exact's candidates, and chunkstream must
@@ -61,7 +65,23 @@
    product on the card bit for bit against the CPU's int32 matmul; and
    build_sketch over the N = 1,048,576 rows on the card, its chunked
    screen against the one-scan screen.
-6. Fused + NER phase (FUSED_QUERY=1, NER model mode): writes a seeded
+6. Sharded phase (parallel/, the fifth slice): ShardedFlatSearcher over
+   1, 2, 4 and 8 logical shards of cuda:0, over the served corpus and
+   over N = 1,048,576 rows made on the card (seed 2), at B in {8, 64}
+   and k in {20, 100}, for auto, exact, streaming, fast, chunkstream and
+   approx (K2 per shard for auto/streaming, K1 for exact/approx/fast, K1
+   + K5 for chunkstream) and int8 exact/chunkstream. Each row holds the
+   merged top-k against the single-device fused_search (values within
+   TOL_FP32, ids up to ties; int8 against int8_search bit for bit) and
+   prints the launches of one search, the redone batches, the card's
+   busy time per search (torch.profiler) and the host time; at one shard
+   beside the unsharded store's spelling of the method. Then
+   VectorStore(sharded="on") over 4 logical shards against the unsharded
+   store (the same hits; int8 shards with exact scores, recall@k >= 0.9),
+   whose searches at B = 8 are the sharded main path whose launches are
+   counted; and an NCCL process group of world size 1 whose 4-shard merge
+   must equal the local one.
+7. Fused + NER phase (FUSED_QUERY=1, NER model mode): writes a seeded
    BERT-base token classifier (12 layers, 768 hidden, the encoder's
    vocab, the 9 labels of rag_icd10_tpu/tools/train_ner.py) with the
    port's converter functions and holds it on the card against the CPU
@@ -77,7 +97,8 @@
    approx, streaming over fp32; exact over bf16), each replay held
    against the eager two-step path with the plain kernel version and
    timed beside the same chain run eagerly.
-7. Prints one JSON line describing each kernel, and as the last line
+8. Prints one JSON line describing each kernel (K1, K2 and K5 with their
+   sharded launches and rows), and as the last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises: the script then exits non-zero. It also exits
@@ -643,11 +664,15 @@ def exact_score_err(store, q_np, rows) -> float:
 
 
 def wall_ms(fn, reps: int = 5) -> float:
-    """Host time per call of a search that ends on the host (its hits)."""
+    """Host time per call of ``fn`` through to the card's end of it."""
+    import torch
+
     fn()
+    torch.cuda.synchronize()
     t = time.perf_counter()
     for _ in range(reps):
         fn()
+    torch.cuda.synchronize()
     return (time.perf_counter() - t) / reps * 1e3
 
 
@@ -885,19 +910,6 @@ def large_sketch_phase(c, w, reps: int = 5):
     return rows
 
 
-def embed_corpus(encoder, texts, batch: int = 512):
-    """Embed in length-sorted batches (fewer padded tokens per forward),
-    returned in the original order."""
-    import numpy as np
-
-    order = sorted(range(len(texts)), key=lambda i: len(texts[i]))
-    out = np.zeros((len(texts), encoder.dim), dtype=np.float32)
-    for s in range(0, len(order), batch):
-        idx = order[s : s + batch]
-        out[idx] = encoder.encode_batch([texts[i] for i in idx], kind="query")
-    return out
-
-
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -1067,14 +1079,71 @@ def reduced_scan_stores(engine, queries_dev, k):
     return out
 
 
-def slice_phase(corpus):
+def build_store(corpus, enc_cfg, store_cfg, probe_texts):
+    """The served store through the port's store builder: the corpus
+    written to a CSV in a temporary directory, then
+    ``DatabaseBuilder.build_full_database`` with the full-width BERT-base
+    bf16 encoder (seeded random weights), then ``verify_database``.
+    Returns the builder encoder's embeddings of ``probe_texts`` (to hold the
+    serving encoder against) and the build row."""
+    import csv
+    import tempfile
+
     import numpy as np
     import torch
 
     from rag_icd10_tpu_torch import config as tconfig
     from rag_icd10_tpu_torch.index.vector_store import VectorStore
-    from rag_icd10_tpu_torch.models.encoder import TextEncoder
-    from rag_icd10_tpu_torch.models.tokenizer import WordPieceTokenizer
+    from rag_icd10_tpu_torch.tools.build_database import DatabaseBuilder, embed_sorted
+
+    db = store_cfg.db_path
+    for suffix in (".npz", ".meta.json", ".manifest.json", ".vocab.txt", ".encoder.json"):
+        Path(db + suffix).unlink(missing_ok=True)
+    builder = DatabaseBuilder(tconfig.Config(encoder=enc_cfg, store=store_cfg, data_path=None),
+                              device=DEVICE)
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_path = str(Path(tmp) / "icd10.csv")
+        with open(csv_path, "w", newline="", encoding="utf-8") as f:
+            writer = csv.writer(f)
+            writer.writerow(["code", "disease"])
+            writer.writerows(zip(corpus.codes, corpus.titles))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check(builder.build_full_database(csv_path, rebuild=True),
+              "DatabaseBuilder built the store and its verification search answered")
+        build_s = time.perf_counter() - t0
+    check(embed_sorted.failed_batches == 0,
+          f"{embed_sorted.failed_batches} batches failed to embed")
+    arch = builder.encoder.arch
+    check((arch.num_layers, arch.hidden_size, arch.num_heads, arch.intermediate_size,
+           arch.vocab_size, arch.compute_dtype) == (12, 768, 12, 3072, 21128, torch.bfloat16),
+          f"full-width BERT-base encoder, got {arch}")
+    t = time.perf_counter()
+    check(builder.verify_database(), "verify_database on the saved store")
+    verify_s = time.perf_counter() - t
+    store = VectorStore.load(db, config=store_cfg, device=DEVICE)
+    vecs = store._vectors
+    check(store.corpus.codes == corpus.codes and store.corpus.semantic_texts
+          == corpus.semantic_texts, "the CSV round trip keeps the corpus")
+    check(vecs.shape == (N_REAL, DIM) and bool(np.isfinite(vecs).all()), "corpus vectors")
+    check(bool(np.allclose(np.linalg.norm(vecs, axis=1), 1.0, atol=1e-3)), "unit vectors")
+    for suffix in (".vocab.txt", ".encoder.json", ".manifest.json"):
+        check(Path(db + suffix).exists(), f"the builder wrote {suffix}")
+    probe = builder.encoder.encode_queries(probe_texts)
+    row = {"rows": N_REAL, "build_s": build_s, "texts_per_s": N_REAL / build_s,
+           "verify_s": verify_s, "failed_batches": embed_sorted.failed_batches,
+           "vocab": builder.encoder.tokenizer.vocab_size}
+    print("builder " + json.dumps(row), flush=True)
+    del builder, store
+    torch.cuda.empty_cache()
+    return probe, row
+
+
+def slice_phase(corpus):
+    import numpy as np
+    import torch
+
+    from rag_icd10_tpu_torch import config as tconfig
     from rag_icd10_tpu_torch.ops.flat_topk import weighted_scores_reference
     from rag_icd10_tpu_torch.ops.fused_score import (
         fused_score_plan, fused_search, fused_weighted_scores, sm_count,
@@ -1083,32 +1152,14 @@ def slice_phase(corpus):
 
     db_dir = ROOT / "build" / "chip_smoke"
     db_dir.mkdir(parents=True, exist_ok=True)
-    db = str(db_dir / "icd10_store")
-    tok = WordPieceTokenizer.from_corpus(corpus.titles + corpus.semantic_texts)
-    tok.save_vocab(db + ".vocab.txt")  # where Engine looks beside the store
     enc_cfg = tconfig.EncoderConfig(weights_path=None, vocab_path=None)
-    encoder = TextEncoder(enc_cfg, tokenizer=tok, seed=0, device=DEVICE)
-    arch = encoder.arch
-    check((arch.num_layers, arch.hidden_size, arch.num_heads, arch.intermediate_size,
-           arch.vocab_size, arch.compute_dtype) == (12, 768, 12, 3072, 21128, torch.bfloat16),
-          f"full-width BERT-base encoder, got {arch}")
-    t0 = time.perf_counter()
-    vecs = embed_corpus(encoder, corpus.semantic_texts)
-    embed_s = time.perf_counter() - t0
-    check(vecs.shape == (N_REAL, DIM) and bool(np.isfinite(vecs).all()), "corpus vectors")
-    check(bool(np.allclose(np.linalg.norm(vecs, axis=1), 1.0, atol=1e-3)), "unit vectors")
-    print(f"embedded {N_REAL} corpus rows in {embed_s:.1f} s", flush=True)
+    # F3: STORE_SHARDED=on with one card serves from that card, unsharded
     store_cfg = tconfig.StoreConfig(
-        db_path=db, search_method="exact", device_dtype="float32",
-        index_type="FLAT", sharded="auto", mode="local",
+        db_path=str(db_dir / "icd10_store"), search_method="exact",
+        device_dtype="float32", index_type="FLAT", sharded="on", mode="local",
     )
-    store = VectorStore(dim=DIM, config=store_cfg, device=DEVICE)
-    store.insert_records(list(corpus.records()), vecs)
-    store.save(db)
     probe_texts = [corpus.semantic_texts[i] for i in (0, 17, N_REAL - 1)]
-    build_vecs = encoder.encode_queries(probe_texts)
-    del encoder, store
-    torch.cuda.empty_cache()
+    build_vecs, builder_row = build_store(corpus, enc_cfg, store_cfg, probe_texts)
 
     cfg = tconfig.Config(
         encoder=enc_cfg,
@@ -1123,6 +1174,12 @@ def slice_phase(corpus):
         served = engine.encoder.encode_queries(probe_texts)
         check(bool(np.allclose(served, build_vecs, atol=1e-5)),
               "serving encoder reproduces the store's encoder")
+        mem = engine.store.get_memory_usage()
+        check(engine.store.config.sharded == "on" and not mem["sharded"]
+              and engine.store._dev is not None,
+              f"F3: STORE_SHARDED=on on one card serves unsharded ({mem['sharded']})")
+        found["f3"] = {"store_sharded": engine.store.config.sharded,
+                       "memory_sharded": mem["sharded"]}
         state = engine.matcher.extract_stage([QUERIES[1][0]])
         texts = state["flat_diagnoses"]
         q = engine.encoder.encode_queries_device(texts)
@@ -1181,6 +1238,7 @@ def slice_phase(corpus):
         titles = corpus.titles[:: N_REAL // 64][:64]
         tier_queries = {8: engine.encoder.encode_queries_device(batch8),
                         64: engine.encoder.encode_queries_device(titles)}
+        found["queries"] = tier_queries  # the sharded phase's store checks
         found["tiers"], found["tier_memory"] = tier_phase(engine.store, tier_queries)
         found["search_checks"] = search_kernel_checks(
             engine.store, {q.shape[0]: q, **tier_queries})
@@ -1211,7 +1269,9 @@ def slice_phase(corpus):
     print("device " + json.dumps(device), flush=True)
     print("K1 main path " + json.dumps(found["main"]), flush=True)
     e2e = {"query_p50_ms": p50, "query_max_ms": max(latencies),
-           "encode_ms": found["encode_ms"], "idle_share": device["idle_share"]}
+           "encode_ms": found["encode_ms"], "idle_share": device["idle_share"],
+           "builder": builder_row, "f3": found["f3"]}
+    print("F3 STORE_SHARDED=on on one card: " + json.dumps(found["f3"]), flush=True)
 
     exact_by_query = {(text, top_k): body for text, top_k, _, body in responses[: len(QUERIES)]}
     main = {"K1": dict(found["main"], launches=launches)}
@@ -1297,7 +1357,277 @@ def slice_phase(corpus):
     e2e["tiers"] = {f"{r['tier']}_B{r['B']}": {key: r[key] for key in
                     ("recall_at_k", "max_score_err_vs_exact", "ms", "exact_ms")}
                     for r in found["tiers"]}
-    return main, e2e, cfg, stages
+    return main, e2e, cfg, stages, found["queries"]
+
+
+# ---------------------------------------------------------------------------
+# Sharded phase (parallel/, STORE_SHARDED): ShardedFlatSearcher over logical
+# shards of cuda:0, the sharded store, and an NCCL group of world size 1.
+# ---------------------------------------------------------------------------
+
+SHARD_COUNTS = (1, 2, 4, 8)
+SHARD_BATCHES = (8, 64)
+SHARD_KS = (20, 100)
+SHARD_METHODS = {"fp32": ("auto", "exact", "streaming", "fast", "chunkstream", "approx"),
+                 "int8": ("exact", "chunkstream")}
+#: (K1, K2, K5) launches per shard of one fp32 search before any redo; a
+#: redone batch adds one K1 scan ("fast" at most one per shard)
+SHARD_LAUNCHES = {"auto": (0, 1, 0), "streaming": (0, 1, 0), "exact": (1, 0, 0),
+                  "approx": (1, 0, 0), "fast": (1, 0, 0), "chunkstream": (1, 0, 1)}
+
+
+def card_busy_ms(fn, reps: int = 3):
+    """Card busy time per call: the device time of every kernel ``fn``
+    launches (torch.profiler), whatever the host does between them; the
+    sharded methods read their certificates with a host sync, which would
+    stall calls queued behind a sleeping kernel (device_ms). A trace with
+    no kernel in it is taken again, twice at most; then None (not
+    measured)."""
+    for _ in range(3):
+        total = sum(kernel_split(fn, reps).values())
+        if total > 0:
+            return total
+    return None
+
+
+def shard_row(name, searcher, method, q, k, want, unsharded, n_real, reps):
+    """One searcher search against its single-device answer, with the
+    kernel launches of that search, its redone batches and its times."""
+    import torch
+
+    from rag_icd10_tpu_torch.ops import fused_score
+
+    ns = searcher.mesh.shape["shard"]
+    b = q.shape[0]
+    what = f"sharded {name} {searcher.store_dtype} {method} shards={ns} B={b} k={k}"
+    redos = searcher.redos + fused_score.streaming_topk.redos
+    zero_launch_counts()
+    vals, idx = searcher.search_device(q, k, method)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    redone = searcher.redos + fused_score.streaming_topk.redos - redos
+    check(int(idx.max()) < n_real, f"{what}: a padding row was returned")
+    # int8 sums are exact: bit for bit against the int8 law
+    tol = 0.0 if searcher.store_dtype == "int8" else TOL_FP32
+    err = same_up_to_ties(vals.cpu().numpy(), idx.cpu().numpy(), want[0].cpu().numpy(),
+                          want[1].cpu().numpy(), what, tol)
+    if searcher.store_dtype == "int8":
+        check(counts["int8_mm"] == ns and counts["K1"] == counts["K2"] == counts["K5"] == 0,
+              f"{what}: launches {counts}")
+    else:
+        e1, e2, e5 = (x * ns for x in SHARD_LAUNCHES[method])
+        k1_ok = e1 <= counts["K1"] <= 2 * e1 if method == "fast" else counts["K1"] == e1 + redone
+        check(k1_ok and counts["K2"] == e2 and counts["K5"] == e5,
+              f"{what}: launches {counts}, {redone} redone")
+    fn = lambda: searcher.search_device(q, k, method)  # noqa: E731
+    row = {"corpus": name, "store": searcher.store_dtype, "method": method, "shards": ns,
+           "B": b, "k": k, "launches": {key: n for key, n in counts.items() if n},
+           "redone": redone, "max_abs_err": err, "device_ms": card_busy_ms(fn),
+           "host_ms": wall_ms(fn, reps)}
+    if ns == 1:  # beside the unsharded store's spelling of the method
+        row["unsharded_device_ms"] = card_busy_ms(lambda: unsharded(q, k))
+        row["unsharded_host_ms"] = wall_ms(lambda: unsharded(q, k), reps)
+    print("sharded " + json.dumps(row), flush=True)
+    return row
+
+
+def sharded_rows(name, c, w, gen, reps):
+    """ShardedFlatSearcher over ``c`` (N, DIM) on the card split into
+    SHARD_COUNTS logical shards of cuda:0, for every method, batch and k,
+    each against the single-device answer: fp32 methods against
+    ``fused_search`` (values within TOL_FP32, ids up to ties), int8 ones
+    against ``int8_search`` (bit for bit)."""
+    import torch
+
+    from rag_icd10_tpu_torch.ops import chunk_stream
+    from rag_icd10_tpu_torch.ops.fused_score import fused_search, streaming_topk
+    from rag_icd10_tpu_torch.ops.quantized import int8_search, quantize_rows
+    from rag_icd10_tpu_torch.ops.rerank import chunk_select_search
+    from rag_icd10_tpu_torch.parallel import ShardedFlatSearcher, make_mesh
+
+    dev = c.device
+    n = c.shape[0]
+    n_pad = -(-n // 1024) * 1024  # the searcher's padding at 8 shards and fewer
+    cp = torch.nn.functional.pad(c, (0, 0, 0, n_pad - n))
+    wp = torch.nn.functional.pad(w, (0, n_pad - n))
+    mp = torch.zeros_like(wp)
+    mp[n:] = -1e30
+    c8, cs = quantize_rows(cp)
+    cstore = chunk_stream.build_device(cp, wp, n_real=n)
+    bound = float(wp.max()) * float(cp.norm(dim=1).max())
+    unsharded = {
+        "auto": lambda q, k: streaming_topk(q, cp, wp, mp, k)[:2],
+        "streaming": lambda q, k: streaming_topk(q, cp, wp, mp, k)[:2],
+        "exact": lambda q, k: fused_search(q, cp, wp, mp, k),
+        "approx": lambda q, k: fused_search(q, cp, wp, mp, k, method="approx"),
+        "fast": lambda q, k: chunk_select_search(q, cp, wp, mp, k, scan_precision="high",
+                                                 bound_scale=bound)[:2],
+        "chunkstream": lambda q, k: chunk_stream.search(cstore, q, k, guarantee=True)[:2],
+        "int8": lambda q, k: int8_search(q, c8, cs, wp, mp, k),
+    }
+    queries = {}
+    for b in SHARD_BATCHES:
+        q = torch.randn((b, DIM), generator=gen, device=dev)
+        queries[b] = q / q.norm(dim=1, keepdim=True)
+    want = {(b, k): {"fp32": fused_search(q, cp, wp, mp, k), "int8": int8_search(
+        q, c8, cs, wp, mp, k)} for b, q in queries.items() for k in SHARD_KS}
+    rows = []
+    for ns in SHARD_COUNTS:
+        mesh = make_mesh(axis_names=("shard",), devices=[dev] * ns)
+        t = time.perf_counter()
+        searchers = [ShardedFlatSearcher(c, w, mesh, axis="shard", store_dtype=dt)
+                     for dt in ("fp32", "int8")]
+        torch.cuda.synchronize()
+        print(f"sharded {name}: {ns} shards of {searchers[0].shard_rows} rows placed in "
+              f"{time.perf_counter() - t:.2f} s", flush=True)
+        for (b, k), answers in want.items():
+            for searcher in searchers:
+                dt = searcher.store_dtype
+                for method in SHARD_METHODS[dt]:
+                    rows.append(shard_row(name, searcher, method, queries[b], k, answers[dt],
+                                          unsharded["int8" if dt == "int8" else method],
+                                          n, reps))
+        del searchers
+    del cp, wp, mp, c8, cs, cstore, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def sharded_store_checks(served, queries):
+    """The sharded store over 4 logical shards of cuda:0 against the
+    unsharded served store (STORE_SHARDED=on on one card, F3): the same
+    hits for every fp32 method; int8 shards with exact scores and recall
+    against exact. The B = 8 searches of "exact" (K2 per shard), "fast"
+    (K1) and "chunkstream" (K1 + K5) are the main path of the sharded
+    store: their launches are counted with the counts set to 0 just
+    before."""
+    import dataclasses
+
+    import torch
+
+    from rag_icd10_tpu_torch.index.vector_store import VectorStore
+    from rag_icd10_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(axis_names=("shard",), devices=[torch.device(DEVICE, 0)] * 4)
+    stores = {}
+    for dtype in ("float32", "int8"):
+        store = VectorStore(dim=DIM, config=dataclasses.replace(
+            served.config, device_dtype=dtype, sharded="on"), device=DEVICE, mesh=mesh)
+        store.corpus, store._vectors = served.corpus, served._vectors
+        store.load_collection()
+        check(store.get_memory_usage()["sharded"] and store._dev is None,
+              f"{dtype} store sharded over 4 logical shards")
+        stores[dtype] = store
+    q8 = queries[8]
+    zero_launch_counts()
+    main_hits = {m: stores["float32"].search(q8, TIER_K, method=m)
+                 for m in ("exact", "fast", "chunkstream")}
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    for name, n in (("K1", 8), ("K2", 4), ("K5", 4)):
+        check(launches[name] >= n, f"sharded store main path: {name} launched "
+              f"{launches[name]} times")
+    out = {"launches": launches, "rows": []}
+    for b, q in queries.items():
+        q_np = q.cpu().numpy()
+        exact = served.search(q, TIER_K, method="exact")
+        for method in ("exact", "streaming", "fast", "chunkstream", "approx"):
+            hits = (main_hits[method] if b == 8 and method in main_hits
+                    else stores["float32"].search(q, TIER_K, method=method))
+            want = served.search(q, TIER_K, method=method)
+            for g, e in zip(hits, want):
+                same_candidates([h.to_dict() for h in g], [h.to_dict() for h in e],
+                                f"sharded store {method} B={b} vs unsharded")
+            out["rows"].append({
+                "store": "float32", "method": method, "B": b, "k": TIER_K,
+                "ms": wall_ms(lambda: stores["float32"].search(q, TIER_K, method=method)),
+                "unsharded_ms": wall_ms(lambda: served.search(q, TIER_K, method=method))})
+        hits = stores["int8"].search(q, TIER_K)
+        err = exact_score_err(served, q_np, hits)
+        recall = recall_at_k(hits, exact)
+        check(err <= 1e-5, f"sharded int8 B={b}: served scores {err} from exact")
+        check(recall >= 0.9, f"sharded int8 B={b}: recall@{TIER_K} {recall}")
+        out["rows"].append({"store": "int8", "method": "exact", "B": b, "k": TIER_K,
+                            "recall_at_k": recall, "max_score_err_vs_exact": err,
+                            "ms": wall_ms(lambda: stores["int8"].search(q, TIER_K))})
+    for row in out["rows"]:
+        print("sharded store " + json.dumps(row), flush=True)
+    out["device_vector_bytes"] = {d: s.get_memory_usage()["device_vector_bytes"]
+                                  for d, s in stores.items()}
+    for store in stores.values():
+        store.release_collection()
+    return out
+
+
+def nccl_row(c, w, q):
+    """parallel.multihost.initialize with NCCL at world size 1 (tcp on a
+    free port): a process-group mesh of 4 logical shards of cuda:0 must
+    give the local merge's answer, and global_sum one all_reduce's."""
+    import torch
+    import torch.distributed as dist
+
+    from rag_icd10_tpu_torch.parallel import ShardedFlatSearcher, make_mesh, multihost
+
+    dev = torch.device(DEVICE, 0)
+    local = ShardedFlatSearcher(c, w, make_mesh(axis_names=("shard",), devices=[dev] * 4,
+                                                distributed=False), axis="shard")
+    t = time.perf_counter()
+    multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0, local_device_count=1,
+                         device=DEVICE, timeout_s=60)
+    row = {"backend": None, "world_size": 1, "shards": 4, "B": q.shape[0], "k": TIER_K,
+           "init_s": time.perf_counter() - t}
+    try:
+        mesh = make_mesh(axis_names=("shard",), devices=[dev] * 4)
+        check(mesh.group is not None, "the mesh carries the process group")
+        row["backend"] = dist.get_backend(mesh.group)
+        check(row["backend"] == "nccl", f"backend {row['backend']}")
+        searcher = ShardedFlatSearcher(c, w, mesh, axis="shard")
+        for method in ("auto", "chunkstream"):
+            gv, gi = searcher.search_device(q, TIER_K, method)
+            lv, li = local.search_device(q, TIER_K, method)
+            same_up_to_ties(gv.cpu().numpy(), gi.cpu().numpy(), lv.cpu().numpy(),
+                            li.cpu().numpy(), f"nccl {method} vs the local merge", 0.0)
+            row[f"{method}_host_ms"] = wall_ms(
+                lambda: searcher.search_device(q, TIER_K, method))
+            row[f"{method}_local_host_ms"] = wall_ms(
+                lambda: local.search_device(q, TIER_K, method))
+        parts = multihost.global_device_put(torch.arange(64.0, device=dev), mesh, "shard")
+        row["global_sum"] = multihost.global_sum(parts, mesh)
+        check(row["global_sum"] == 2016.0, f"global_sum {row['global_sum']}")
+    finally:
+        multihost.shutdown()
+    print("nccl " + json.dumps(row), flush=True)
+    return row
+
+
+def sharded_phase(cfg, queries):
+    """The sharded rows over the served corpus (the built store) and
+    the 1M-row corpus, the sharded store against the unsharded one, and
+    the NCCL row. Returns the rows, the store checks and the NCCL row."""
+    import torch
+
+    from rag_icd10_tpu_torch.index.vector_store import VectorStore
+
+    t0 = time.perf_counter()
+    served = VectorStore.load(cfg.store.db_path, config=cfg.store, device=DEVICE)
+    served.load_collection()
+    check(not served.get_memory_usage()["sharded"], "F3: the served store is unsharded")
+    dev = torch.device(DEVICE, 0)
+    c = torch.from_numpy(served._vectors).to(dev)
+    w = torch.from_numpy(served.corpus.level_weights(cfg.store.level_weights)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rows = sharded_rows("served", c, w, gen, reps=10)
+    store = sharded_store_checks(served, queries)
+    nccl = nccl_row(c, w, queries[8])
+    served.release_collection()
+    del c, w, served
+    torch.cuda.empty_cache()
+    big_c, big_w, _ = large_corpus()
+    rows += sharded_rows("1M", big_c, big_w, gen, reps=3)
+    del big_c, big_w
+    torch.cuda.empty_cache()
+    print(f"sharded phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows, store, nccl
 
 
 # ---------------------------------------------------------------------------
@@ -1398,17 +1728,17 @@ def ner_card_vs_cpu(ner_dir: Path, reps: int = 5) -> dict:
     return out
 
 
-def same_up_to_ties(got_v, got_i, want_v, want_i, what):
-    """Values within TOL_FP32; an id in one top-k and not the other scores
-    within TOL_FP32 of the k-th value (a tie at the boundary)."""
+def same_up_to_ties(got_v, got_i, want_v, want_i, what, tol: float = TOL_FP32):
+    """Values within ``tol``; an id in one top-k and not the other scores
+    within ``tol`` of the k-th value (a tie at the boundary)."""
     import numpy as np
 
     err = float(np.abs(np.asarray(got_v) - np.asarray(want_v)).max())
-    check(err <= TOL_FP32, f"{what}: values differ by {err}")
+    check(err <= tol, f"{what}: values differ by {err}")
     for gv, gi, wv, wi in zip(got_v, got_i, want_v, want_i):
         g, w = dict(zip(gi.tolist(), gv.tolist())), dict(zip(wi.tolist(), wv.tolist()))
         for j in g.keys() ^ w.keys():
-            check(abs(g.get(j, w.get(j)) - float(wv[-1])) <= TOL_FP32, f"{what}: id {j}")
+            check(abs(g.get(j, w.get(j)) - float(wv[-1])) <= tol, f"{what}: id {j}")
     return err
 
 
@@ -1725,7 +2055,22 @@ def main() -> int:
         corpus.level_weights((1.2, 1.0, 0.8)))
     sweeps["K1"] = sweep
     print("K34 threshold rows " + json.dumps(sweeps.pop("threshold")), flush=True)
-    main_path, e2e, cfg, stages = slice_phase(corpus)
+    main_path, e2e, cfg, stages, queries = slice_phase(corpus)
+    shard_rows, shard_store, nccl = sharded_phase(cfg, queries)
+    e2e["sharded_store"] = shard_store
+    e2e["nccl"] = nccl
+    sharded = shard_store["launches"]
+    main_path["K1"]["launches_by_path"]["sharded"] = sharded["K1"]
+    main_path["K2"]["launches_by_path"]["sharded"] = sharded["K2"]
+    main_path["K5"]["launches_by_path"] = {"chunkstream": main_path["K5"]["launches"],
+                                           "sharded": sharded["K5"]}
+    for kid in ("K1", "K2", "K5"):
+        main_path[kid]["sharded"] = [
+            {key: r[key] for key in ("corpus", "store", "method", "shards", "B", "k",
+                                     "launches", "redone", "device_ms", "host_ms")}
+            for r in shard_rows if r["store"] == "fp32" and r["corpus"] == "served"
+            and (r["B"], r["k"]) == (8, TIER_K)
+            and SHARD_LAUNCHES[r["method"]][("K1", "K2", "K5").index(kid)]]
     fused, fused_rows = fused_phase(corpus, cfg, {"query_p50_ms": e2e["query_p50_ms"],
                                                   "stages": stages})
     e2e["fused"] = fused
@@ -1765,7 +2110,7 @@ def main() -> int:
             **({"main_batches": row["batches"]} if "batches" in row else {}),
             **({"threshold": k1_threshold} if kid == "K1" else {}),
             **{key: row[key] for key in ("launches_by_path", "chunk_select", "bf16_rerank",
-                                         "fused") if key in row},
+                                         "fused", "sharded") if key in row},
             "sweep": sweeps[kid],
         })
     e2e["sketch_1M"] = sketch_large

@@ -6,13 +6,15 @@ for module (config, data, models, ops, index, pipeline, api, runtime);
 this package imports nothing of it and keeps its own copy of every host
 module it needs.
 
-Ported so far: the ``/query`` main path with the shipped defaults — host
-extraction, the BERT sentence encoder, the flat ``exact``/``approx``
-search over an fp32 or bf16 device-resident corpus, rescoring and the
-API server. The TPU scoring kernel is a hand-written CUDA kernel
-(``ops/csrc/fused_score.cu``). Entry points run on ``cuda`` unless the
-caller passes ``device="cpu"``. What is not yet ported raises
-"not yet ported" (see ROADMAP.md).
+Ported so far: the API server with every search method and residency of
+the JAX store (exact, approx, fast, streaming, chunkstream, int8, host +
+sketch, hnsw, remote), corpus-sharded search over a device mesh
+(``parallel/``, NCCL or gloo across processes), NER model mode, the
+fused query engine, weight conversion and the store builder
+(``tools/build_database.py``). Each TPU kernel is a hand-written CUDA
+kernel under ``ops/csrc/``. Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``. Training and the retrieval eval are not
+ported yet (see ROADMAP.md).
 """
 
 __version__ = "0.1.0"

@@ -195,9 +195,10 @@ class StoreConfig:
     int8_rerank: str = field(
         default_factory=lambda: _env("INT8_RERANK", "device")
     )
-    # corpus-dimension sharding over all visible devices (parallel/search.py):
-    # "auto" = shard when >1 TPU device is attached; "on"/"off" force it.
-    # Per-shard scan + one all_gather(k) merge — the 100M-row scaling path.
+    # corpus-dimension sharding over the store's mesh (parallel/search.py):
+    # "auto" = shard when >1 CUDA card is attached; "on" = shard when the
+    # mesh has >1 shard; "off" never. Per-shard scan + one merge of k
+    # candidates per shard — the 100M-row scaling path.
     sharded: str = field(default_factory=lambda: _env("STORE_SHARDED", "auto"))
     # store mode (reference parity: MILVUS_MODE=server connects to a
     # remote Milvus, milvus_service.py:57-118): "local" serves this

@@ -31,8 +31,16 @@ reference MilvusService (services/milvus_service.py): ``insert_records``
   certificate with their top-k; ``finalize`` reads it and redoes an
   uncertified batch on the exact path. int8 residency selects with the
   int8 product and re-ranks on the device or the host (``INT8_RERANK``).
-  ``sharded="on"`` raises ``ValueError`` ("not yet ported"), which the
-  API maps to HTTP 400; ``sharded="auto"`` means one device.
+- Corpus sharding (``STORE_SHARDED``, the JAX store's ``_use_sharded``):
+  ``off`` never shards; ``on`` shards when the store's mesh has more than
+  one shard; ``auto`` when the store is on ``cuda`` and more than one
+  card is attached. The mesh is ``VectorStore(mesh=...)`` or
+  ``parallel.make_mesh`` over the store's devices (every local card, or
+  every rank's under ``torch.distributed``); a mesh of logical shards
+  runs them all on one device. A sharded store serves through
+  ``parallel/search.py ShardedFlatSearcher`` along the mesh's first axis,
+  in fp32 shards (a bf16 configuration too, as in JAX) or int8 shards
+  with a host fp32 re-rank.
 - No shape bucketing: PyTorch runs eagerly and the kernel masks ragged
   edges, so queries go in at their own batch size and top-k at k. The
   approximate tiers over-fetch from the JAX store's k grid
@@ -89,13 +97,6 @@ def _bucket_k(k: int) -> int:
     """The smallest k of the JAX store's grid that holds k (its largest
     above 128)."""
     return next((g for g in _K_BUCKETS if k <= g), _K_BUCKETS[-1])
-
-
-def _not_ported(what: str) -> ValueError:
-    return ValueError(
-        f"{what} not yet ported to rag_icd10_tpu_torch "
-        f"(served search methods: {', '.join(SERVED_METHODS)})"
-    )
 
 
 @dataclass
@@ -169,10 +170,12 @@ class VectorStore:
         config: Optional[StoreConfig] = None,
         hnsw_config=None,
         device: Union[str, torch.device] = "cuda",
+        mesh=None,
     ):
         from ..config import HNSWConfig
 
         self.device = resolve_device(device)
+        self._mesh = mesh  # parallel.Mesh; None: make_mesh() over self.device's type
         self.config = config or StoreConfig()
         self.hnsw_config = hnsw_config or HNSWConfig()
         self.dim = dim
@@ -181,6 +184,7 @@ class VectorStore:
         self._title_rows: Optional[Dict[str, List[int]]] = None
         # device-resident state (set by load_collection)
         self._dev: Optional[Dict[str, torch.Tensor]] = None
+        self._sharded = None  # parallel.ShardedFlatSearcher (corpus sharded)
         self._semantic_vectors: Optional[np.ndarray] = None
         self._hnsw = None  # native graph index (index_type == "HNSW")
         self._bound_scale = None  # w_max * max row norm (method="fast")
@@ -263,6 +267,7 @@ class VectorStore:
                 )
         self._loaded = False  # device state is stale
         self._dev = None
+        self._sharded = None
         # the graph, the certificate scale and the screens cover only the
         # old rows; drop them so save() cannot persist a stale graph
         self._hnsw = None
@@ -327,12 +332,37 @@ class VectorStore:
     def num_entities(self) -> int:
         return 0 if self.corpus is None else len(self.corpus)
 
+    def _use_sharded(self) -> bool:
+        """Corpus sharding policy (the JAX store's ``_use_sharded``): "off"
+        never, "on" when the mesh has more than one shard, "auto" (or any
+        other value) when the store is on ``cuda`` and more than one card
+        is attached. One card therefore serves from one device under "on"
+        and "auto" alike, as the JAX store does on one chip."""
+        mode = (self.config.sharded or "auto").lower()
+        if mode == "off":
+            return False
+        if mode == "on":
+            return self._shard_mesh().devices.shape[0] > 1
+        return self.device.type == "cuda" and torch.cuda.device_count() > 1
+
+    def _shard_mesh(self):
+        if self._mesh is None:
+            from ..parallel.mesh import make_mesh
+            from ..parallel.multihost import local_devices
+
+            self._mesh = make_mesh(
+                axis_names=("shard",), devices=local_devices(self.device.type)
+            )
+        return self._mesh
+
     def load_collection(self) -> bool:
         """Pad + transfer the corpus matrix, level weights and padding mask
         to the device (reference analog: milvus_service.py:343), in the
         configured residency: fp32, bf16, int8 rows with per-row scales,
         or (``host``) only the sketch screen, the full-width rows staying
-        in host memory."""
+        in host memory. A sharded store (``_use_sharded``) spreads the rows
+        over its mesh instead: int8 shards for int8 residency, fp32 shards
+        otherwise (parallel/search.py)."""
         if self._vectors is None or self.corpus is None:
             return False
         dtype = self.config.device_dtype
@@ -349,9 +379,18 @@ class VectorStore:
             self._dev = None
             self._loaded = True
             return True
-        if (self.config.sharded or "auto").lower() == "on":
-            raise _not_ported("STORE_SHARDED=on (multi-device corpus sharding)")
         weights = self.corpus.level_weights(self.config.level_weights)
+        if self._use_sharded():
+            from ..parallel.search import ShardedFlatSearcher
+
+            mesh = self._shard_mesh()
+            self._sharded = ShardedFlatSearcher(
+                self._vectors, weights, mesh, axis=mesh.axis_names[0],
+                store_dtype="int8" if dtype == "int8" else "fp32",
+            )
+            self._dev = None  # single-device residency replaced by shards
+            self._loaded = True
+            return True
         cp, wp, m = pad_corpus(
             self._vectors, weights, multiple=self.config.pad_multiple
         )
@@ -382,6 +421,7 @@ class VectorStore:
     def release_collection(self) -> bool:
         """Drop device tensors (reference analog: milvus_service.py:411)."""
         self._dev = None
+        self._sharded = None
         self._chunkstore = None
         self._sketch = None
         self._loaded = False
@@ -505,6 +545,8 @@ class VectorStore:
             )
         if not self._loaded and not self.load_collection():
             return PendingSearch(hits=[[] for _ in range(b)])
+        if self._sharded is not None:
+            return self._search_sharded(q, k_eff, method, requested)
         if method == "sketch" or self.config.device_dtype == "host":
             # capacity tier: device int8 sketch screen + host-row exact fp32
             # re-rank; selection approximate, scores exact (HNSW contract)
@@ -569,6 +611,31 @@ class VectorStore:
             return self._materialize(v, i)
 
         return PendingSearch(finalize=_finalize)
+
+    def _search_sharded(self, q, k: int, method: str, requested) -> PendingSearch:
+        """The per-request method, honored per shard (``hnsw`` was served
+        above; a method the shards do not serve, ``sketch`` too, raises
+        for the API's 400). ``exact`` runs the shards' ``auto``
+        (K2 up to k = 128). int8 shards select a merged over-fetch of m =
+        max(min(_bucket_k(4k), shard rows, N), k) candidates that the host
+        re-ranks in exact fp32 (the single-device int8 host contract); a
+        configured fp32-kernel default the int8 shards do not serve takes
+        their exact scan, an explicit one raises. Padding ids are dropped
+        by ``build_hits``."""
+        sharded = self._sharded
+        smethod = "auto" if method == "exact" else method
+        b = q.shape[0]
+        if sharded.store_dtype == "int8":
+            if smethod not in ("auto", "exact", "chunkstream") and requested is None:
+                smethod = "exact"
+            m = max(min(_bucket_k(4 * k), sharded.shard_rows, self.num_entities), k)
+            _, cand = sharded.search(q, k=m, method=smethod)
+            cand = np.where(cand < self.num_entities, cand, -1)
+            vals, idx = self._host_rerank(self._host(q), cand, k)
+        else:
+            vals, idx = sharded.search(q, k=k, method=smethod)
+        self._count(b)
+        return PendingSearch(hits=self.build_hits(vals, idx))
 
     def _search_int8(self, q: torch.Tensor, k: int, method: str) -> PendingSearch:
         """int8 residency: int8 selection (ops/quantized.py), then a
@@ -782,16 +849,18 @@ class VectorStore:
         """Estimate = n·dim·4 bytes (formula parity: milvus_service.py:515);
         ``device_vector_bytes`` is the residency cost under the configured
         dtype (bf16 halves it, int8 quarters it plus per-row scales, the
-        host tier keeps only the sketch screen); ``chunkstore_device_bytes``
-        is what a built chunk store adds on top (its scan matrix and
-        scales, and its raw rows where they are not the resident corpus
-        itself)."""
+        host tier keeps only the sketch screen, a sharded store sums its
+        shards' rows, padding included); ``chunkstore_device_bytes`` is
+        what a built chunk store adds on top (its scan matrix and scales,
+        and its raw rows where they are not the resident corpus itself)."""
         vector_bytes = self.num_entities * self.dim * 4
         dtype = self.config.device_dtype
         per_elem = {"float32": 4, "bfloat16": 2, "int8": 1}.get(dtype, 4)
         device_bytes = self.num_entities * self.dim * per_elem
         if dtype == "int8":
             device_bytes += self.num_entities * 4  # per-row scales
+        if self._sharded is not None:
+            device_bytes = self._sharded.device_bytes  # summed over the shards
         if dtype == "host":
             device_bytes = (
                 self._sketch.device_bytes
@@ -813,7 +882,7 @@ class VectorStore:
             "device_resident": self._loaded,
             "device_dtype": self.config.device_dtype,
             "chunkstore_device_bytes": chunk_bytes,
-            "sharded": False,
+            "sharded": self._sharded is not None,
         }
 
     def _device_reachable(self) -> bool:

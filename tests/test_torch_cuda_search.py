@@ -19,14 +19,24 @@ and skip elsewhere. The file imports neither JAX nor the JAX package:
 - ``int8_matmul`` / ``int8_search`` on the card (``torch._int_mm``)
   against the CPU's int32 matmul: accumulators bit for bit, and the
   elementwise epilogue bit for bit too.
+- Corpus-sharded search (``parallel/``) over 1, 2, 4 and 8 logical shards
+  on ``cuda:0``: each fp32 method's merged top-k against the single-device
+  ``fused_search`` (values within 5e-5, ids up to ties), with the kernel
+  launches per search counted (K2 once per shard for ``auto``, K1 and K5
+  per ``chunkstream`` shard, K1 per ``fast`` and ``exact`` shard); int8
+  shards against ``int8_search`` bit for bit; the sharded store against
+  the unsharded one; and an NCCL process group of world size 1 whose
+  merge equals the local one.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from rag_icd10_tpu_torch.ops import chunk_stream, fused_score
 from rag_icd10_tpu_torch.ops.flat_topk import pad_corpus
 from rag_icd10_tpu_torch.ops.fused_score import (
+    fused_search,
     fused_weighted_scores,
     streaming_candidates,
 )
@@ -165,3 +175,139 @@ def test_int8_product_bit_equal_to_cpu(cuda, b, n, d):
     rv, _ = int8_search_device_rerank(*args_gpu, k=k)
     pv, _ = int8_search_device_rerank(*args_cpu, k=k)
     assert torch.allclose(rv.cpu(), pv, atol=TOL, rtol=0)
+
+
+def _launches():
+    return (fused_score.fused_weighted_scores.launches,
+            fused_score.streaming_candidates.launches,
+            chunk_stream.gather_rescore.launches)
+
+
+def _sharded_problem(b, n_real, d, seed, dev):
+    rng = np.random.default_rng(seed)
+    c = torch.randn((n_real, d), generator=torch.Generator().manual_seed(seed))
+    c = (c / c.norm(dim=1, keepdim=True)).to(dev)
+    w = torch.from_numpy(np.array([1.2, 1.0, 0.8], np.float32)[rng.integers(0, 3, n_real)])
+    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32))
+    return (q / q.norm(dim=1, keepdim=True)).to(dev), c, w.to(dev)
+
+
+# (K1, K2, K5) launches per shard of one search, before any redo
+SHARD_LAUNCHES = {"auto": (0, 1, 0), "streaming": (0, 1, 0), "exact": (1, 0, 0),
+                  "approx": (1, 0, 0), "fast": (1, 0, 0), "chunkstream": (1, 0, 1)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", list(SHARD_LAUNCHES))
+@pytest.mark.parametrize("n_shards", [1, 2, 4, 8])
+@pytest.mark.parametrize("b,k", [(8, 20), (64, 100)])
+def test_sharded_search_matches_single_device(cuda, method, n_shards, b, k):
+    """Each shard launches its method's kernels once; a redone batch adds
+    one K1 scan (chunkstream's counted by the searcher, streaming's by
+    ``streaming_topk.redos``, fast's at most one per shard)."""
+    from rag_icd10_tpu_torch.parallel import ShardedFlatSearcher, make_mesh
+
+    q, c, w = _sharded_problem(b, 40474, 768, n_shards + b, cuda)
+    mesh = make_mesh(axis_names=("shard",), devices=[cuda] * n_shards)
+    searcher = ShardedFlatSearcher(c, w, mesh, axis="shard")
+    cp = torch.nn.functional.pad(c, (0, 0, 0, searcher.n_padded - c.shape[0]))
+    wp = torch.nn.functional.pad(w, (0, searcher.n_padded - c.shape[0]))
+    mp = torch.zeros_like(wp)
+    mp[c.shape[0]:] = -1e30
+    want_v, want_i = fused_search(q, cp, wp, mp, k)
+    before = _launches()
+    redos = searcher.redos + fused_score.streaming_topk.redos
+    got_v, got_i = searcher.search_device(q, k, method=method)
+    torch.cuda.synchronize()
+    k1, k2, k5 = (a - b0 for a, b0 in zip(_launches(), before))
+    redone = searcher.redos + fused_score.streaming_topk.redos - redos
+    e1, e2, e5 = (x * n_shards for x in SHARD_LAUNCHES[method])
+    assert (k2, k5) == (e2, e5), (method, k2, k5)
+    if method == "fast":
+        assert e1 <= k1 <= 2 * e1
+    else:
+        assert k1 == e1 + redone, (method, k1, redone)
+    assert int(got_i.max()) < 40474
+    _same_up_to_ties(got_v, got_i.long(), want_v, want_i.long(), (method, n_shards))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["exact", "chunkstream"])
+@pytest.mark.parametrize("n_shards", [2, 8])
+def test_sharded_int8_equals_int8_search(cuda, method, n_shards):
+    from rag_icd10_tpu_torch.parallel import ShardedFlatSearcher, make_mesh
+
+    q, c, w = _sharded_problem(16, 40960, 768, 3, cuda)
+    searcher = ShardedFlatSearcher(c, w, make_mesh(axis_names=("shard",),
+                                                   devices=[cuda] * n_shards),
+                                   axis="shard", store_dtype="int8")
+    c8, cs = quantize_rows(c)
+    want_v, want_i = int8_search(q, c8, cs, w, torch.zeros_like(w), k=20)
+    got_v, got_i = searcher.search_device(q, 20, method=method)
+    assert torch.equal(got_v, want_v)
+    for a, b in zip(got_i.tolist(), want_i.tolist()):
+        assert set(a) == set(b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("device_dtype", ["float32", "int8"])
+def test_sharded_store_on_card_serves_the_unsharded_hits(cuda, device_dtype):
+    from rag_icd10_tpu_torch.config import StoreConfig
+    from rag_icd10_tpu_torch.data.corpus import synthetic_corpus
+    from rag_icd10_tpu_torch.index.vector_store import VectorStore
+    from rag_icd10_tpu_torch.parallel import make_mesh
+
+    n, d = 5000, 768
+    rng = np.random.default_rng(5)
+    vecs = rng.standard_normal((n, d)).astype(np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    records = list(synthetic_corpus(n, seed=5).records())
+    stores = {}
+    for sharded in ("on", "off"):
+        cfg = StoreConfig(sharded=sharded, device_dtype=device_dtype, int8_rerank="host")
+        store = VectorStore(dim=d, config=cfg, device=cuda, mesh=make_mesh(
+            axis_names=("shard",), devices=[cuda] * 4))
+        store.insert_records(records, vecs)
+        store.load_collection()
+        stores[sharded] = store
+    assert stores["on"].get_memory_usage()["sharded"]
+    assert not stores["off"].get_memory_usage()["sharded"]
+    q = torch.from_numpy(vecs[:8] + 0.05 * rng.standard_normal((8, d)).astype(np.float32))
+    q = (q / q.norm(dim=1, keepdim=True)).to(cuda)
+    for method in (None, "chunkstream"):
+        got = stores["on"].search(q, 20, method=method)
+        want = stores["off"].search(q, 20, method=method if device_dtype == "float32" else None)
+        for g, e in zip(got, want):
+            gv = torch.tensor([h.score for h in g])
+            ev = torch.tensor([h.score for h in e])
+            assert torch.allclose(gv, ev, atol=TOL, rtol=0), method
+
+
+@pytest.mark.gpu
+def test_nccl_world_size_one_merge_equals_local(cuda):
+    import socket
+
+    from rag_icd10_tpu_torch.parallel import ShardedFlatSearcher, make_mesh, multihost
+
+    q, c, w = _sharded_problem(8, 40474, 768, 9, cuda)
+    local = ShardedFlatSearcher(c, w, make_mesh(axis_names=("shard",), devices=[cuda] * 4,
+                                                distributed=False), axis="shard")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    multihost.initialize(f"127.0.0.1:{port}", 1, 0, local_device_count=1, device="cuda",
+                         timeout_s=60)
+    try:
+        mesh = make_mesh(axis_names=("shard",), devices=[cuda] * 4)
+        assert mesh.group is not None
+        dist_search = ShardedFlatSearcher(c, w, mesh, axis="shard")
+        for method in ("auto", "chunkstream"):
+            gv, gi = dist_search.search_device(q, 20, method=method)
+            lv, li = local.search_device(q, 20, method=method)
+            assert torch.equal(gv.cpu(), lv.cpu())
+            for a, b in zip(gi.tolist(), li.tolist()):
+                assert set(a) == set(b)
+        parts = multihost.global_device_put(torch.arange(64.0, device=cuda), mesh, "shard")
+        assert multihost.global_sum(parts, mesh) == 2016.0
+    finally:
+        multihost.shutdown()

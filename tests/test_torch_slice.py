@@ -230,16 +230,22 @@ def test_api_server_answers_query_and_health(deployment):
                 np.testing.assert_allclose(
                     [c["score"] for c in got], [c["score"] for c in exp], atol=1e-5
                 )
-        # what is still not ported answers 400: a store switched to
-        # multi-device sharding refuses to load on the next request
+        # STORE_SHARDED=on over one device serves from that device, as
+        # the JAX store does on one chip: the same candidates, unsharded
         store = server.engine.store
+        status, want = _request(
+            loop, tc, "post", "/query", {"text": "急性胃肠炎", "search_method": "exact"},
+        )
         store.release_collection()
         store.config = dataclasses.replace(store.config, sharded="on")
         status, body = _request(
             loop, tc, "post", "/query",
             {"text": "急性胃肠炎", "search_method": "exact"},
         )
-        assert status == 400 and "not yet ported" in body["detail"]
+        assert status == 200, body
+        assert [c["code"] for c in body["candidates"]] == [
+            c["code"] for c in want["candidates"]]
+        assert not store.get_memory_usage()["sharded"]
     finally:
         loop.run_until_complete(tc.close())
         loop.close()
@@ -349,8 +355,8 @@ def test_golden_fixture_through_port(mock_client, name, path, payload):
 
 
 def test_unported_modes_raise_at_startup(monkeypatch):
-    """What the port does not serve yet (STORE_SHARDED=on) fails loudly
-    where it is configured, instead of silently serving something else.
+    """STORE_SHARDED=on, which raised here until the port's fifth slice,
+    loads a one-device store unsharded (tests/test_torch_parallel.py).
     NER model mode and FUSED_QUERY, which raised here until the port's
     fourth slice, now run (tests/test_torch_ner_model.py and
     tests/test_torch_fused_query.py): weights that cannot be read degrade
@@ -372,8 +378,7 @@ def test_unported_modes_raise_at_startup(monkeypatch):
         dim=64, config=tconfig.StoreConfig(pad_multiple=128, sharded="on"), device="cpu"
     )
     sharded.insert_records(list(engine.store.corpus.records()), engine.store._vectors)
-    with pytest.raises(ValueError, match="not yet ported"):
-        sharded.load_collection()
+    assert sharded.load_collection() and sharded._sharded is None
     engine = Engine(
         tconfig.Config(store=tconfig.StoreConfig(
             mode="remote", server_url="http://127.0.0.1:1")),

@@ -4,9 +4,9 @@ the same synthetic corpus and vectors.
 
 Hits must name the same codes up to ties, with scores within 1e-5 (IEEE
 fp32 on both sides; sums over D=128 in different orders). A store saved
-by either package must load in the other. What the port does not serve
-yet (``sharded="on"``) must raise instead of silently serving something
-else.
+by either package must load in the other. ``sharded="on"`` over the
+CPU's one device serves unsharded, as the JAX store does on one chip
+(tests/test_torch_parallel.py covers the sharded store).
 
 Every search method and residency is served: "fast"/"chunk" (certified,
 exact), "sketch" and "hnsw" (the same basis and graph as the JAX store's,
@@ -157,15 +157,15 @@ def test_unported_methods_raise(stores, method):
     ids=["int8", "host", "sharded", "hnsw-index"],
 )
 def test_unported_residency_raises(config):
-    """Multi-device sharding is still not ported and raises; int8 and host
-    residency and the HNSW index type, which raised until the port's third
-    slice, are served and give the JAX store's hits."""
+    """int8 and host residency and the HNSW index type, which raised until
+    the port's third slice, and ``sharded="on"``, which raised until its
+    fifth, are served and give the JAX store's hits (``on`` over the CPU's
+    one device unsharded)."""
     store = VectorStore(dim=DIM, config=config, device="cpu")
     store.insert_records(list(synthetic_corpus(20).records()), _vectors(20, 1))
     if config.sharded == "on":
-        with pytest.raises(ValueError, match="not yet ported"):
-            store.search(_vectors(1, 0), 5)
-        return
+        store.load_collection()
+        assert store._sharded is None and not store.get_memory_usage()["sharded"]
     jstore = JStore(dim=DIM, config=JStoreConfig(
         device_dtype=config.device_dtype, index_type=config.index_type))
     jstore.insert_records(list(jsynthetic(20).records()), _vectors(20, 1))
