@@ -97,9 +97,23 @@
    approx, streaming over fp32; exact over bf16), each replay held
    against the eager two-step path with the plain kernel version and
    timed beside the same chain run eagerly.
-8. Prints one JSON line describing each kernel (K1, K2 and K5 with their
-   sharded launches and rows), and as the last line
-   {"ok": true, "device": {...}}.
+8. Train phase (tools/train_encoder.py, parallel/train.py, the eval
+   gate): full-width BERT-base (bf16 compute, fp32 parameters) on
+   triplet batches that train_encoder.draw_batch makes from the
+   synthetic corpus at the CLI's defaults (hard negatives, the weighted
+   loss). The same seeded 3 steps at batch 8 on the card and on the CPU,
+   bf16 and fp32 compute, each step's loss printed on both and held
+   within TOL_TRAIN_BF16 / TOL_TRAIN_FP32; ms per step and samples/s at
+   batch 256 over 20 steps after 3 (CUDA events), peak device memory,
+   dense TFLOP/s and the card's busy share (torch.profiler). Then
+   train_encoder.main end to end on the card (the corpus as a CSV under
+   ICD_DATA_PATH, 20 steps, --eval-gate 0.0): the gate must bless the
+   weights, every loss must be finite, and the gate's searches must
+   launch K1 (counted from 0 just before the run); the embed, the eval
+   and the whole run are timed, and the tiers printed.
+9. Prints one JSON line describing each kernel (K1, K2 and K5 with their
+   sharded launches and rows; K1 with its eval_gate launches), and as
+   the last line {"ok": true, "device": {...}}.
 
 Any failed check raises: the script then exits non-zero. It also exits
 non-zero, printing no result, when CUDA is unavailable or when the
@@ -2021,6 +2035,284 @@ def fused_phase(corpus, cfg, two_step):
     return summary, found["engine_rows"]
 
 
+# ---------------------------------------------------------------------------
+# Train phase (tools/train_encoder.py, parallel/train.py, the eval gate):
+# full-width BERT-base (bf16 compute, fp32 parameters) on triplet batches
+# of the synthetic corpus at the CLI's defaults; then the CLI end to end
+# with its eval gate, whose searches launch K1.
+
+TRAIN_BATCH, TRAIN_SEQ_A, TRAIN_SEQ_B = 256, 48, 96  # the CLI's defaults
+TRAIN_WARM, TRAIN_TIMED, TRAIN_PROFILED = 3, 20, 3
+TRAIN_PAIR_STEPS, TRAIN_PAIR_BATCH = 3, 8  # card against CPU
+GATE_STEPS = 20
+TOL_TRAIN_BF16 = 2e-2  # bf16 dense layers round at other places on the two devices
+TOL_TRAIN_FP32 = 1e-4  # fp32 sums in other orders; Adam turns near-zero gradients' rounding
+#                        into update differences of up to the learning rate
+
+
+def train_batches(corpus, tok, n: int, rows: int, seed: int):
+    """``n`` triplet batches of ``rows`` as the CLI draws them: hard
+    negatives, augmentation 0.4, markers 0.25, cousins 0.3, the weighted
+    loss's level weights, over successive rows of one permutation."""
+    import numpy as np
+
+    from rag_icd10_tpu_torch.tools.train_encoder import (
+        build_examples,
+        draw_batch,
+        title_weight_map,
+    )
+
+    weights = (1.2, 1.0, 0.8)
+    examples, title_ids = build_examples(corpus, level_weights=weights)
+    title_weights = title_weight_map(corpus, weights)
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(len(examples))
+    return [draw_batch(examples, order[i * rows:(i + 1) * rows], corpus.titles, title_ids,
+                       rng, tok, TRAIN_SEQ_A, TRAIN_SEQ_B, 0.4, 0.25, 0.3, 0.0, title_weights)
+            for i in range(n)]
+
+
+def step_tflop(batch) -> float:
+    """Dense matmul TFLOP of one training step (forward and backward, 3x
+    the forward's 2 flops a multiply-add) from the batch's shapes:
+    BERT-base's projections and FFN on every token, and the attention
+    products on every (query, key) pair."""
+    h, inter, layers = 768, 3072, 12
+    flops = 0.0
+    for side in ("a", "h", "b"):
+        rows, seq = batch[f"{side}_ids"].shape
+        per_token = 2 * (4 * h * h + 2 * h * inter) + 2 * 2 * seq * h
+        flops += 3 * layers * rows * seq * per_token
+    return flops / 1e12
+
+
+def train_card_vs_cpu(arch, params, batches) -> dict:
+    """The same seeded steps at batch 8 on the card and on the CPU, bf16
+    compute (the trained configuration) and fp32 compute, under the CLI's
+    schedule for --steps 20 (the first step at lr 0). Returns each step's
+    loss on both."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from rag_icd10_tpu_torch.parallel.train import (
+        init_train_state,
+        make_train_step,
+        warmup_cosine_decay_schedule,
+    )
+
+    schedule = warmup_cosine_decay_schedule(0.0, 1e-4, min(100, GATE_STEPS // 10 + 1),
+                                            GATE_STEPS)
+    out = {}
+    for name, dtype, tol in (("bf16", torch.bfloat16, TOL_TRAIN_BF16),
+                             ("fp32", torch.float32, TOL_TRAIN_FP32)):
+        losses = {}
+        for dev in (DEVICE, "cpu"):
+            state = init_train_state(dataclasses.replace(arch, compute_dtype=dtype),
+                                     params=params, schedule=schedule, device=dev)
+            check(all(p.dtype == torch.float32 and p.device.type == torch.device(dev).type
+                      for p in state.model.parameters()),
+                  f"fp32 parameters on {dev}")
+            step = make_train_step()
+            losses[dev] = [float(step(state, b)["loss"]) for b in batches]
+            del state
+        err = max(abs(a - b) for a, b in zip(losses[DEVICE], losses["cpu"]))
+        check(all(np.isfinite(losses[DEVICE] + losses["cpu"])), f"finite {name} losses")
+        check(err <= tol, f"train {name} loss card vs CPU {err} > {tol}: {losses}")
+        out[name] = {"card": losses[DEVICE], "cpu": losses["cpu"], "max_abs_err": err,
+                     "tol": tol}
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_timing(arch, params, batches) -> dict:
+    """ms per step and samples/s at batch 256 over TRAIN_TIMED steps after
+    TRAIN_WARM (CUDA events; each step reads its loss back, as the CLI's
+    loop does), peak device memory, and the card's busy share: the
+    kernels' time per step over TRAIN_PROFILED traced steps
+    (torch.profiler) over the untraced step time, and over the traced
+    steps' own wall time."""
+    import numpy as np
+    import torch
+
+    from rag_icd10_tpu_torch.parallel.train import init_train_state, make_train_step
+
+    state = init_train_state(arch, params=params, schedule=1e-4, device=DEVICE)
+    step = make_train_step()
+    torch.cuda.reset_peak_memory_stats()
+    for b in batches[:TRAIN_WARM]:
+        float(step(state, b)["loss"])
+    timed = batches[TRAIN_WARM:TRAIN_WARM + TRAIN_TIMED]
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    losses = [float(step(state, b)["loss"]) for b in timed]
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / len(timed)
+    peak = torch.cuda.max_memory_allocated()
+    # CUDA activity only: with CPU ops traced too, ops run by autograd's
+    # backward thread carry their kernels' device time as well, and a sum
+    # over every event counts those kernels twice
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for b in batches[:TRAIN_PROFILED]:
+            float(step(state, b)["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+                      if e.self_device_time_total > 0), key=lambda r: -r[1])
+    busy_ms = sum(ms_ for _, ms_ in kernels)
+    check(all(np.isfinite(losses)), f"finite losses at batch {TRAIN_BATCH}: {losses}")
+    check(0 < busy_ms <= wall_ms, f"the profiled steps' kernels: {busy_ms} ms in {wall_ms} ms")
+    tflop = step_tflop(timed[0])
+    row = {"batch": TRAIN_BATCH, "seq_a": TRAIN_SEQ_A, "seq_b": TRAIN_SEQ_B,
+           "warm_steps": TRAIN_WARM, "timed_steps": len(timed), "ms_per_step": ms,
+           "samples_per_s": TRAIN_BATCH / (ms / 1e3), "peak_mem_gib": peak / 2**30,
+           "step_tflop": tflop, "tflop_per_s": tflop / (ms / 1e3),
+           "bf16_peak_share": tflop / (ms / 1e3) / (PEAK_FLOPS["bf16"] / 1e12),
+           "busy_ms_per_step": busy_ms / TRAIN_PROFILED,
+           "busy_share": busy_ms / TRAIN_PROFILED / ms,  # kernel time over the untraced step
+           "busy_share_traced": busy_ms / wall_ms,
+           "profiled_wall_ms_per_step": wall_ms / TRAIN_PROFILED,
+           "top": [{"kernel": key[:80], "ms_per_step": v / TRAIN_PROFILED}
+                   for key, v in kernels[:6]],
+           "losses": losses}
+    del state
+    torch.cuda.empty_cache()
+    return row
+
+
+def gate_run(corpus) -> dict:
+    """``tools/train_encoder.main`` end to end on the card: the corpus as a
+    CSV under a temporary directory (ICD_DATA_PATH), GATE_STEPS steps at
+    the CLI's defaults with --weighted-loss, then --eval-gate 0.0. The
+    embed and the eval are timed by wrapping the functions the gate calls;
+    every step's loss is recorded the same way; K1's launches are counted
+    over the whole run (training launches none)."""
+    import csv
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from rag_icd10_tpu_torch.eval import retrieval
+    from rag_icd10_tpu_torch.parallel import train as ptrain
+    from rag_icd10_tpu_torch.tools import build_database, train_encoder
+
+    seconds = {"embed_s": 0.0, "eval_s": 0.0}
+    losses = []
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seconds[key] += time.perf_counter() - t
+        return run
+
+    def recording(make):
+        def make_step(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def run(state, batch):
+                m = step(state, batch)
+                losses.append(float(m["loss"]))
+                return m
+            return run
+        return make_step
+
+    patches = [(build_database, "embed_sorted", timed(build_database.embed_sorted, "embed_s")),
+               (retrieval, "evaluate", timed(retrieval.evaluate, "eval_s")),
+               (ptrain, "make_train_step", recording(ptrain.make_train_step))]
+    saved_attrs = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_path = Path(tmp) / "icd10.csv"
+        with open(csv_path, "w", newline="", encoding="utf-8") as f:
+            writer = csv.writer(f)
+            writer.writerow(["code", "disease"])
+            writer.writerows(zip(corpus.codes, corpus.titles))
+        env = {"ICD_DATA_PATH": str(csv_path), "EMBEDDING_VOCAB_PATH": "",
+               "EMBEDDING_WEIGHTS_PATH": ""}
+        saved_env = {key: os.environ.get(key) for key in env}
+        os.environ.update(env)
+        for mod, name, fn in patches:
+            setattr(mod, name, fn)
+        out = Path(tmp) / "trained"
+        zero_launch_counts()
+        try:
+            t = time.perf_counter()
+            rc = train_encoder.main(
+                ["--steps", str(GATE_STEPS), "--batch", str(TRAIN_BATCH), "--weighted-loss",
+                 "--eval-gate", "0.0", "--out", str(out), "--log-every", "5",
+                 "--save-every", "0"], device=DEVICE)
+            total_s = time.perf_counter() - t
+        finally:
+            for mod, name, fn in saved_attrs:
+                setattr(mod, name, fn)
+            for key, value in saved_env.items():
+                if value is None:
+                    os.environ.pop(key, None)
+                else:
+                    os.environ[key] = value
+        counts = launch_counts()
+        gate = json.loads((out / "eval_gate.json").read_text(encoding="utf-8"))
+        files = sorted(p.name for p in out.iterdir())
+    check(rc == 0 and gate["blessed"] is True, f"the gate blessed the weights: rc {rc}, {gate}")
+    check(len(losses) == GATE_STEPS and all(np.isfinite(losses)),
+          f"{len(losses)} finite losses of {GATE_STEPS}: {losses}")
+    check(counts["K1"] > 0, f"the gate's searches launched K1: {counts}")
+    check({"params.npz", "vocab.txt", "opt_state.npz", "eval_gate.json"} <= set(files),
+          f"the CLI wrote its checkpoint: {files}")
+    return {"steps": GATE_STEPS, "total_s": total_s, **seconds,
+            "train_and_other_s": total_s - seconds["embed_s"] - seconds["eval_s"],
+            "losses": losses, "k1_launches": counts["K1"], "launches": counts,
+            "blessed": gate["blessed"], "candidate": gate["candidate"],
+            "gate_metric": gate["gate_metric"], "tiers": gate["tiers"]}
+
+
+def train_phase(corpus) -> dict:
+    """Card against CPU at batch 8, the timing at batch 256, then the CLI
+    with its eval gate."""
+    import torch
+
+    from rag_icd10_tpu_torch.data.augment import augmentation_charset_texts
+    from rag_icd10_tpu_torch.models.bert import BertArch, init_params
+    from rag_icd10_tpu_torch.models.tokenizer import WordPieceTokenizer
+
+    t0 = time.perf_counter()
+    tok = WordPieceTokenizer.from_corpus(corpus.titles + corpus.semantic_texts
+                                         + augmentation_charset_texts())
+    arch = BertArch(vocab_size=max(21128, tok.vocab_size))
+    check((arch.num_layers, arch.hidden_size, arch.num_heads, arch.intermediate_size,
+           arch.compute_dtype) == (12, 768, 12, 3072, torch.bfloat16),
+          f"full-width BERT-base, got {arch}")
+    params = init_params(arch, seed=0)
+    t = time.perf_counter()
+    batches = train_batches(corpus, tok, TRAIN_WARM + TRAIN_TIMED, TRAIN_BATCH, seed=0)
+    draw_ms = (time.perf_counter() - t) * 1e3 / len(batches)
+    found = {"card_vs_cpu": train_card_vs_cpu(
+        arch, params, train_batches(corpus, tok, TRAIN_PAIR_STEPS, TRAIN_PAIR_BATCH, seed=1))}
+    print("train card vs CPU " + json.dumps(found["card_vs_cpu"]), flush=True)
+    found["step"] = {**train_timing(arch, params, batches), "host_draw_ms_per_batch": draw_ms}
+    step = found["step"]
+    print(f"train step: batch {TRAIN_BATCH}, {step['ms_per_step']:.2f} ms per step, "
+          f"{step['samples_per_s']:.1f} samples/s, peak {step['peak_mem_gib']:.2f} GiB, "
+          f"{step['tflop_per_s']:.1f} TFLOP/s dense ({step['bf16_peak_share']:.3f} of the bf16 "
+          f"peak), busy share {step['busy_share']:.3f}; host draw "
+          f"{draw_ms:.1f} ms a batch", flush=True)
+    del params, batches
+    found["gate"] = gate_run(corpus)
+    gate = found["gate"]
+    print(f"eval gate: {gate['steps']} steps + gate in {gate['total_s']:.1f} s (embed "
+          f"{gate['embed_s']:.1f} s, eval {gate['eval_s']:.1f} s), K1 {gate['k1_launches']} "
+          f"launches, blessed {gate['blessed']}, tiers {json.dumps(gate['tiers'])}", flush=True)
+    found["phase_s"] = time.perf_counter() - t0
+    print("train " + json.dumps(found), flush=True)
+    return found
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -2079,6 +2371,10 @@ def main() -> int:
     main_path["K2"]["launches_by_path"]["fused_streaming"] = sum(
         r["launches_per_replay"]["K2"] for r in fused_rows)
     main_path["K2"]["fused"] = [r for r in fused_rows if r["method"] == "streaming"]
+    train = train_phase(corpus)
+    e2e["train"] = {key: train[key] for key in ("card_vs_cpu", "step", "phase_s")}
+    e2e["eval_gate"] = {key: v for key, v in train["gate"].items() if key != "launches"}
+    main_path["K1"]["launches_by_path"]["eval_gate"] = train["gate"]["k1_launches"]
     check(jax_before or sys.modules.get("jax") is None, "the port imported JAX")
     check(not any(m == "rag_icd10_tpu" or m.startswith("rag_icd10_tpu.")
                   for m in sys.modules), "the port imported the JAX package")

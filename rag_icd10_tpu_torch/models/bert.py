@@ -6,7 +6,12 @@ heads) with masked mean pooling and L2 normalization on top
 (reference: services/embedding_service.py:47-104).
 
 - Dense layers run in ``compute_dtype`` (bf16 by default): inputs and
-  weights in that dtype, fp32 accumulation inside the matmul.
+  weights in that dtype, fp32 accumulation inside the matmul. Their
+  weights are stored in ``param_dtype``: by default the compute dtype
+  (serving), fp32 for training (flax's ``param_dtype=float32``), where
+  ``forward`` casts them to the compute dtype, so that the optimizer
+  updates fp32 master weights (AdamW on bf16 weights would drop every
+  update below about 2^-8 of a weight).
 - Attention logits are computed from the compute-dtype q and k widened to
   fp32 (bf16 x bf16 products are exact in fp32), so they carry the JAX
   einsum's ``preferred_element_type=float32``; softmax is fp32, and the
@@ -24,7 +29,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -43,25 +48,37 @@ class BertArch:
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
     compute_dtype: torch.dtype = torch.bfloat16
+    param_dtype: Optional[torch.dtype] = None  # Dense weights; None: compute_dtype
+
+    @property
+    def dense_param_dtype(self) -> torch.dtype:
+        return self.param_dtype or self.compute_dtype
 
 
 class Dense(nn.Linear):
-    """``nn.Linear`` whose weights live in the compute dtype; inputs are
-    cast to it (flax ``Dense(dtype=compute_dtype)``)."""
+    """``nn.Linear`` computing in ``arch.compute_dtype`` with weights stored
+    in ``arch.dense_param_dtype``; inputs, weights and bias are cast to the
+    compute dtype (flax ``Dense(dtype=compute_dtype,
+    param_dtype=...)``). Where the two dtypes agree the casts are no-ops."""
+
+    def __init__(self, n_in: int, n_out: int, arch: BertArch):
+        super().__init__(n_in, n_out, dtype=arch.dense_param_dtype)
+        self.compute_dtype = arch.compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 class BertSelfAttention(nn.Module):
     def __init__(self, arch: BertArch):
         super().__init__()
         self.arch = arch
-        h, dt = arch.hidden_size, arch.compute_dtype
-        self.query = Dense(h, h, dtype=dt)
-        self.key = Dense(h, h, dtype=dt)
-        self.value = Dense(h, h, dtype=dt)
-        self.out = Dense(h, h, dtype=dt)
+        h = arch.hidden_size
+        self.query = Dense(h, h, arch)
+        self.key = Dense(h, h, arch)
+        self.value = Dense(h, h, arch)
+        self.out = Dense(h, h, arch)
 
     def forward(self, hidden: torch.Tensor, attn_bias: torch.Tensor) -> torch.Tensor:
         a = self.arch
@@ -83,11 +100,11 @@ class BertSelfAttention(nn.Module):
 class BertLayer(nn.Module):
     def __init__(self, arch: BertArch):
         super().__init__()
-        h, dt, eps = arch.hidden_size, arch.compute_dtype, arch.layer_norm_eps
+        h, eps = arch.hidden_size, arch.layer_norm_eps
         self.attention = BertSelfAttention(arch)
         self.attention_ln = nn.LayerNorm(h, eps=eps)
-        self.intermediate = Dense(h, arch.intermediate_size, dtype=dt)
-        self.output = Dense(arch.intermediate_size, h, dtype=dt)
+        self.intermediate = Dense(h, arch.intermediate_size, arch)
+        self.output = Dense(arch.intermediate_size, h, arch)
         self.output_ln = nn.LayerNorm(h, eps=eps)
 
     def forward(self, hidden: torch.Tensor, attn_bias: torch.Tensor) -> torch.Tensor:

@@ -15,12 +15,20 @@ other.
   classifier's when the tree has a ``classifier`` head: flax ``Dense``
   kernels are stored (in, out) and are transposed to ``nn.Linear``'s
   (out, in); embeddings and LayerNorm ``scale``/``bias`` are renamed.
+  ``params_to_jax`` is its inverse.
+- ``opt_state_from_jax`` / ``opt_state_to_jax`` carry the optimizer state
+  between the leaves of ``optax.adamw(schedule)`` (the Adam count, ``mu``,
+  ``nu`` and the schedule's count, as ``jax.tree_util.tree_leaves``
+  flattens them: dict keys sorted at every level) and the ``state`` of
+  ``torch.optim.AdamW`` over ``model.parameters()``, so a training
+  checkpoint (``params.npz`` + ``opt_state.npz``) of either package
+  resumes in the other.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -180,3 +188,114 @@ def params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
     if "classifier" in params:  # flax Dense (H, L) -> nn.Linear (L, H)
         sd.update(dense(params["classifier"], "classifier"))
     return sd
+
+
+def _param_paths(num_layers: int, classifier: bool = False) -> List[Tuple[tuple, str, bool]]:
+    """(JAX tree path, state-dict name, transposed) of every parameter of
+    ``SentenceBert`` (and a token classifier's head)."""
+    out: List[Tuple[tuple, str, bool]] = []
+
+    def dense(path, name):
+        out.extend([(path + ("kernel",), f"{name}.weight", True),
+                    (path + ("bias",), f"{name}.bias", False)])
+
+    def ln(path, name):
+        out.extend([(path + ("scale",), f"{name}.weight", False),
+                    (path + ("bias",), f"{name}.bias", False)])
+
+    for emb in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
+        out.append((("bert", emb, "embedding"), f"bert.{emb}.weight", False))
+    ln(("bert", "embeddings_ln"), "bert.embeddings_ln")
+    for i in range(num_layers):
+        path, name = ("bert", f"layer_{i}"), f"bert.layers.{i}"
+        for proj in ("query", "key", "value", "out"):
+            dense(path + ("attention", proj), f"{name}.attention.{proj}")
+        ln(path + ("attention_ln",), f"{name}.attention_ln")
+        dense(path + ("intermediate",), f"{name}.intermediate")
+        dense(path + ("output",), f"{name}.output")
+        ln(path + ("output_ln",), f"{name}.output_ln")
+    if classifier:
+        dense(("classifier",), "classifier")
+    return out
+
+
+def _paths_of(names) -> List[Tuple[tuple, str, bool]]:
+    names = set(names)
+    num_layers = sum(1 for n in names if n.endswith(".attention.query.weight"))
+    return _param_paths(num_layers, classifier="classifier.weight" in names)
+
+
+def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict:
+    """``SentenceBert`` (or token classifier) state dict -> the JAX-layout
+    parameter tree of fp32 numpy arrays, the inverse of
+    ``params_from_jax``; ``save_params`` and ``TextEncoder(params=...)``
+    take it."""
+    tree: Dict = {}
+    for path, name, transposed in _paths_of(state_dict):
+        x = state_dict[name].detach().to("cpu", torch.float32)
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = (x.T if transposed else x).contiguous().numpy()
+    return tree
+
+
+def _jax_leaf_order(model) -> List[Tuple[int, bool]]:
+    """(index in ``model.parameters()``, transposed) of each parameter in
+    the order ``jax.tree_util.tree_leaves`` visits the JAX tree (dict keys
+    sorted at every level)."""
+    index = {name: i for i, (name, _) in enumerate(model.named_parameters())}
+    paths = _paths_of(index)
+    if len(paths) != len(index):
+        raise ValueError(f"{len(index)} parameters, {len(paths)} known to the JAX layout")
+    return [(index[name], transposed) for _, name, transposed in sorted(paths)]
+
+
+def opt_state_from_jax(leaves, model) -> Dict[int, Dict[str, torch.Tensor]]:
+    """Leaves of an ``optax.adamw`` state over the JAX tree of ``model``'s
+    parameters ([count, *mu, *nu], then the schedule's count when the
+    learning rate is a schedule) -> the ``state`` entry of a
+    ``torch.optim.AdamW`` state dict over ``model.parameters()``: per
+    parameter ``step`` (the Adam count), ``exp_avg`` (``mu``) and
+    ``exp_avg_sq`` (``nu``), kernels transposed to ``nn.Linear``'s
+    layout."""
+    order = _jax_leaf_order(model)
+    n = len(order)
+    if len(leaves) not in (2 * n + 1, 2 * n + 2):
+        raise ValueError(f"{len(leaves)} optimizer leaves for {n} parameters "
+                         f"(expected {2 * n + 1} or {2 * n + 2})")
+    step = torch.tensor(float(np.asarray(leaves[0])), dtype=torch.float32)
+    params = list(model.parameters())
+    state: Dict[int, Dict[str, torch.Tensor]] = {}
+    for j, (i, transposed) in enumerate(order):
+        moments = []
+        for leaf in (leaves[1 + j], leaves[1 + n + j]):
+            x = torch.from_numpy(np.array(leaf, dtype=np.float32))
+            moments.append((x.T if transposed else x).contiguous().to(params[i].device))
+        state[i] = {"step": step.clone(), "exp_avg": moments[0], "exp_avg_sq": moments[1]}
+    return state
+
+
+def opt_state_to_jax(optimizer, model) -> List[np.ndarray]:
+    """The leaves of the ``optax.adamw(schedule)`` state that ``optimizer``
+    (a ``torch.optim.AdamW`` over ``model.parameters()``) holds, in
+    ``jax.tree_util.tree_leaves`` order: the count, ``mu``, ``nu`` and the
+    schedule's count (equal to the Adam count). Parameters not yet stepped
+    have zero moments."""
+    order = _jax_leaf_order(model)
+    params = list(model.parameters())
+    mu, nu, count = [], [], 0
+    for i, transposed in order:
+        st = optimizer.state.get(params[i], {})
+        if "step" in st:
+            count = int(float(st["step"]))
+        pair = []
+        for key in ("exp_avg", "exp_avg_sq"):
+            x = st.get(key)
+            x = torch.zeros_like(params[i], dtype=torch.float32) if x is None else x
+            x = x.detach().to("cpu", torch.float32)
+            pair.append((x.T if transposed else x).contiguous().numpy())
+        mu.append(pair[0])
+        nu.append(pair[1])
+    counts = [np.asarray(count, np.int32)]
+    return counts + mu + nu + counts

@@ -17,13 +17,16 @@ mesh's other axes.
   shard's kernels on one card or one CPU, so a single H100 and the CPU
   tests drive the sharded code at any shard count.
 
-The JAX module's tensor-parallel rules (``param_shardings``,
-``batch_sharding``) serve only its training step; they come with the
-port of parallel/train.py.
+The training step (parallel/train.py) reads the JAX module's sharding
+rules (:49-96) in the same form: a ``PartitionSpec`` is a tuple holding,
+per array axis, the mesh axis it splits over or None. Batches split over
+``dp``; the Megatron rules split parameters over ``tp``, which the port's
+step does not run yet (it raises for ``tp`` > 1).
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -142,3 +145,57 @@ def make_mesh(
         shape = (dp, tp)
     return Mesh(grid.reshape(shape), axis_names, np.asarray(owners[:n]).reshape(shape),
                 group=group, rank=rank)
+
+
+#: per array axis, the mesh axis it splits over (None: not split); () replicates
+PartitionSpec = Tuple[Optional[str], ...]
+
+# Megatron-style TP rules for the BERT parameter tree in the JAX layout
+# (models/convert_hf.params_to_jax), matched against 'path/like/this'
+# strings; first hit wins (rag_icd10_tpu/parallel/mesh.py:49-73).
+_PARTITION_RULES: Tuple[Tuple[str, PartitionSpec], ...] = (
+    # attention projections: shard the head (output) dim
+    (r".*attention/(query|key|value)/kernel", (None, "tp")),
+    (r".*attention/(query|key|value)/bias", ("tp",)),
+    # attention output: shard the input dim (row-parallel)
+    (r".*attention/out/kernel", ("tp", None)),
+    (r".*attention/out/bias", ()),
+    # FFN: column-parallel in, row-parallel out
+    (r".*intermediate/kernel", (None, "tp")),
+    (r".*intermediate/bias", ("tp",)),
+    (r".*output/kernel", ("tp", None)),
+    (r".*output/bias", ()),
+    # embeddings: shard the vocab dim
+    (r".*word_embeddings/embedding", ("tp", None)),
+    (r".*position_embeddings/embedding", ()),
+    (r".*token_type_embeddings/embedding", ()),
+    # layer norms replicated
+    (r".*ln/(scale|bias)", ()),
+)
+
+
+def _spec_for_path(path: str) -> PartitionSpec:
+    for pattern, spec in _PARTITION_RULES:
+        if re.fullmatch(pattern, path):
+            return spec
+    return ()
+
+
+def param_shardings(mesh: Mesh, params) -> Dict:
+    """Tree of ``PartitionSpec``s matching the parameter tree."""
+
+    def walk(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{prefix}/{k}" if prefix else k) for k, v in tree.items()}
+        return _spec_for_path(prefix)
+
+    return walk(params)
+
+
+def batch_sharding(mesh: Mesh) -> PartitionSpec:
+    """Data batches split over dp (leading axis), replicated over tp."""
+    return ("dp",)
+
+
+def replicated(mesh: Mesh) -> PartitionSpec:
+    return ()

@@ -246,10 +246,14 @@ class Engine:
         A host-resident store serves only sketch and hnsw: the others are
         skipped with a log line, and sketch is warmed where the list has
         neither; chunkstream is skipped likewise over a residency other
-        than fp32, which refuses it."""
+        than fp32, which refuses it. A sharded store serves ``hnsw`` and
+        what its shards serve (``parallel.search.INT8_METHODS`` or
+        ``FP32_METHODS``): the other methods are skipped likewise. Any
+        other failure propagates."""
         import numpy as np
 
         from .index.vector_store import SERVED_METHODS
+        from .parallel.search import FP32_METHODS, INT8_METHODS
 
         methods = [
             m.strip().lower()
@@ -263,6 +267,11 @@ class Engine:
         overfetch = self.config.pipeline.overfetch
         rng = np.random.default_rng(0)
         host_tier = self.store.config.device_dtype == "host"
+        if not self.store.is_loaded:
+            self.store.load_collection()
+        sharded = self.store._sharded
+        shard_methods = None if sharded is None else (
+            INT8_METHODS if sharded.store_dtype == "int8" else FP32_METHODS)
         if host_tier and not any(m in ("sketch", "hnsw") for m in methods):
             methods.append("sketch")
         for method in methods:
@@ -275,7 +284,15 @@ class Engine:
                     "sketch/hnsw only)", method,
                 )
                 continue
-            if method == "chunkstream" and self.store.config.device_dtype != "float32":
+            if shard_methods is not None:
+                if method != "hnsw" and method not in shard_methods:
+                    logger.info(
+                        "warmup: skipping method=%s (a %s-sharded store serves "
+                        "%s and hnsw)", method, sharded.store_dtype,
+                        ", ".join(shard_methods),
+                    )
+                    continue
+            elif method == "chunkstream" and self.store.config.device_dtype != "float32":
                 logger.info(
                     "warmup: skipping method=chunkstream (it needs fp32 "
                     "residency, the store holds %s)", self.store.config.device_dtype,

@@ -5,12 +5,23 @@ on a free port, 60 s timeout) and hold 4 logical CPU shards each, one
 ``global_device_put`` + ``global_sum`` (one ``all_reduce``) and a
 corpus-sharded search whose per-rank merges meet in one ``all_gather``.
 
+Then the data-parallel training step: a (dp = 2, tp = 1) mesh with one
+CPU device a rank; each rank embeds its half of a batch of 8 (with hard
+negatives and level weights), and the step must equal the single-process
+step over all 8 rows, which each rank also runs on its own: the loss of
+both steps within 1e-5, and every parameter after them within 1e-5 but
+the attention key biases, whose gradient is zero in exact arithmetic and
+whose Adam updates are rounding noise of either sign (held to 2·Σ lr, as
+in tests/test_torch_train.py). That shows the in-batch negatives stay
+global. A dp state started from given parameters and optimizer leaves
+keeps them (the warm start of ``--dp --init-from``).
+
 The worker is this file run as a script, so it imports no JAX (it
 asserts so). The parent checks that both ranks print the same lines:
-``global_sum`` = 2016.0 and a search result equal to numpy's argsort in
+``global_sum`` = 2016.0, a search result equal to numpy's argsort in
 every fp32 method the shards serve, and to the one-shard int8 law (values
-bit for bit) in both int8 methods. The counterpart of
-tests/test_multihost.py.
+bit for bit) in both int8 methods, and the training checks. The
+counterpart of tests/test_multihost.py.
 """
 
 import os
@@ -57,9 +68,13 @@ def test_two_process_gloo_dryrun():
     assert checks[0] == checks[1], checks  # both ranks computed the same results
     assert checks[0][0] == "CHECK mesh {'shard': 8} ranks [0, 0, 0, 0, 1, 1, 1, 1]"
     assert checks[0][1] == "CHECK sum 2016.0"  # sum(arange(64))
-    searches = checks[0][2:]
+    searches = [line for line in checks[0] if line.startswith("CHECK search")]
     assert len(searches) == 7, searches
     assert all(line.endswith(" True") for line in searches), searches
+    train = [line for line in checks[0] if line.startswith("CHECK train")]
+    assert train == ["CHECK train dp mesh {'dp': 2, 'tp': 1} ranks [0, 1]",
+                     "CHECK train sharded step equals the one-process step True",
+                     "CHECK train warm start kept True"], checks[0]
 
 
 def _worker(coordinator: str, nproc: int, rank: int) -> int:
@@ -103,11 +118,57 @@ def _worker(coordinator: str, nproc: int, rank: int) -> int:
                     and all(set(a) == set(b) for a, b in zip(idx, ref_i)))
                 print(f"CHECK search {store_dtype} {method} {idx[0].tolist()} {ok}",
                       flush=True)
+        _train_checks(mesh)
         assert "jax" not in sys.modules and not any(
             m == "rag_icd10_tpu" or m.startswith("rag_icd10_tpu.") for m in sys.modules)
     finally:
         multihost.shutdown()
     return 0
+
+
+def _train_checks(search_mesh) -> None:
+    import torch
+
+    from rag_icd10_tpu_torch.models.bert import BertArch, init_params
+    from rag_icd10_tpu_torch.parallel import init_train_state, make_mesh
+    from rag_icd10_tpu_torch.parallel.train import make_sharded_train_step, make_train_step
+
+    arch = BertArch(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
+                    intermediate_size=128, max_position_embeddings=32,
+                    compute_dtype=torch.float32)
+    mesh = make_mesh(dp=2, tp=1, devices=["cpu"])  # one device a rank, joined
+    print(f"CHECK train dp mesh {mesh.shape} ranks {mesh.ranks.ravel().tolist()}", flush=True)
+    r = np.random.default_rng(0)  # the same whole batch on every rank
+    b, lr = 8, 1e-3
+    batch = {}
+    for name, seq in (("a", 16), ("b", 24), ("h", 16)):
+        ids = r.integers(1, 128, size=(b, seq)).astype(np.int32)
+        mask = np.ones_like(ids)
+        mask[:, seq - 3:] = 0
+        batch.update({f"{name}_ids": ids, f"{name}_mask": mask,
+                      f"{name}_types": np.zeros_like(ids)})
+    batch.update(group_a=np.arange(b, dtype=np.int32),
+                 group_b=np.arange(b, 2 * b, dtype=np.int32),
+                 h_group=np.arange(2 * b, 3 * b, dtype=np.int32),
+                 w_b=r.choice([0.8, 1.0, 1.2], b).astype(np.float32),
+                 w_h=r.choice([0.8, 1.0, 1.2], b).astype(np.float32))
+    params = init_params(arch, seed=3)
+    sharded = init_train_state(arch, mesh=mesh, schedule=lr, params=params)
+    single = init_train_state(arch, device="cpu", schedule=lr, params=params)
+    step_s, step_1 = make_sharded_train_step(mesh), make_train_step()
+    ok = True
+    for _ in range(2):
+        ls, l1 = float(step_s(sharded, batch)["loss"]), float(step_1(single, batch)["loss"])
+        ok &= abs(ls - l1) <= 1e-5
+    for (name, a), c in zip(sharded.model.named_parameters(), single.model.parameters()):
+        limit = 2 * 2 * lr * 1.01 if name.endswith("attention.key.bias") else 1e-5
+        ok &= float((a - c).abs().max()) <= limit
+    print(f"CHECK train sharded step equals the one-process step {ok}", flush=True)
+    warm = init_train_state(arch, mesh=mesh, schedule=lr, params=single.params(),
+                            opt_state=single.opt_state_leaves())
+    kept = warm.step == 2 and all(torch.equal(a, c) for a, c in zip(
+        warm.model.parameters(), single.model.parameters()))
+    print(f"CHECK train warm start kept {kept}", flush=True)
 
 
 if __name__ == "__main__":

@@ -455,3 +455,83 @@ def test_sharded_int8_serves_exact_scores():
         assert len(store.search(q[:1], top_k=3, method="chunkstream")[0]) == 3
         with pytest.raises(ValueError, match="int8-sharded"):
             store.search(q[:1], top_k=3, method="fast")
+
+
+# ------------------------------------------------------------------ F4
+
+
+def _warmup_engine(store, methods=None):
+    """An Engine over ``store`` with the default WARMUP_SEARCH_METHODS, or
+    ``methods``."""
+    from rag_icd10_tpu_torch.config import Config
+    from rag_icd10_tpu_torch.runtime import Engine
+
+    config = Config()
+    assert config.api.warmup_methods == "fast,streaming"
+    if methods is not None:
+        config = dataclasses.replace(
+            config, api=dataclasses.replace(config.api, warmup_methods=methods))
+    engine = Engine(config=config, device="cpu")
+    engine.store = store
+    return engine
+
+
+def _two_shard_store(device_dtype):
+    rng = np.random.default_rng(5)
+    vecs = rng.standard_normal((300, 32)).astype(np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    store = VectorStore(
+        dim=32, config=StoreConfig(pad_multiple=128, sharded="on", device_dtype=device_dtype),
+        device="cpu",
+        mesh=make_mesh(axis_names=("shard",), devices=["cpu", "cpu"], distributed=False),
+    )
+    store.insert_records(list(synthetic_corpus(300, seed=5).records()), vecs)
+    return store, vecs
+
+
+def test_f4_warmup_skips_what_int8_shards_refuse(caplog):
+    """F4: the default warmup list (fast, streaming) over an int8-sharded
+    store raised "not available on an int8-sharded store", so the server
+    did not start where the JAX server does. The methods the shards
+    refuse are now skipped with a log line; those they serve still run."""
+    store, vecs = _two_shard_store("int8")
+    engine = _warmup_engine(store)
+    with caplog.at_level("INFO", logger="rag_icd10_tpu_torch"):
+        engine._warmup_extra_methods([1, 2])
+    assert store._sharded is not None and store._sharded.store_dtype == "int8"
+    for method in ("fast", "streaming"):
+        assert f"skipping method={method} (a int8-sharded store" in caplog.text
+        with pytest.raises(ValueError, match="int8-sharded"):
+            store.search(vecs[:1], top_k=3, method=method)
+    engine = _warmup_engine(store, "exact,chunkstream,approx,sketch")
+    caplog.clear()
+    with caplog.at_level("INFO", logger="rag_icd10_tpu_torch"):
+        engine._warmup_extra_methods([1])
+    assert "warmup(exact) done" in caplog.text and "warmup(chunkstream) done" in caplog.text
+    assert "skipping method=approx" in caplog.text and "skipping method=sketch" in caplog.text
+
+
+def test_f4_warmup_skips_sketch_over_fp32_shards(caplog):
+    store, _ = _two_shard_store("float32")
+    engine = _warmup_engine(store, "fast,streaming,sketch,chunkstream")
+    with caplog.at_level("INFO", logger="rag_icd10_tpu_torch"):
+        engine._warmup_extra_methods([1, 2])
+    assert store._sharded is not None and store._sharded.store_dtype == "fp32"
+    assert "skipping method=sketch (a fp32-sharded store" in caplog.text
+    for method in ("fast", "streaming", "chunkstream"):
+        assert f"warmup({method}) done" in caplog.text
+
+
+def test_f4_warmup_still_raises_other_failures():
+    """Only the methods a store refuses by design are skipped: any other
+    failure of the warmup propagates, as the port's rule has it."""
+    store, _ = _two_shard_store("int8")
+    engine = _warmup_engine(store, "fast,exact")
+    store.load_collection()
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("scan failed")
+
+    store._sharded.search = broken
+    with pytest.raises(RuntimeError, match="scan failed"):
+        engine._warmup_extra_methods([1])
