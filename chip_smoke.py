@@ -111,9 +111,28 @@
    weights, every loss must be finite, and the gate's searches must
    launch K1 (counted from 0 just before the run); the embed, the eval
    and the whole run are timed, and the tiers printed.
-9. Prints one JSON line describing each kernel (K1, K2 and K5 with their
-   sharded launches and rows; K1 with its eval_gate launches), and as
-   the last line {"ok": true, "device": {...}}.
+9. NER-train phase (tools/train_ner.py): the token classifier at the
+   tool's defaults (256 hidden, 4 layers, 4 heads, bf16 compute, fp32
+   parameters) on the tool's template batches over the synthetic
+   corpus's titles. The same seeded 3 steps at batch 8 on the card and
+   on the CPU, bf16 and fp32 compute, each step's loss printed on both
+   and held within TOL_NER_TRAIN_BF16 / TOL_NER_TRAIN_FP32; ms per step
+   and tokens/s at batch 64 x seq 64 over 50 steps after 5 (CUDA
+   events), peak device memory, the card's busy share (torch.profiler)
+   and the host's make_batch ms. Then train_ner.main end to end on the
+   card (NER_TOOL_STEPS steps, the corpus as a CSV under ICD_DATA_PATH):
+   every logged loss finite and the last a tenth of the first or less,
+   eval.json written, the model's span F1 at least NER_MIN_F1 and above
+   the rules'. Then the API server over the saved store with
+   NER_WEIGHTS_PATH set to the trained directory (two-step path): NER in
+   model mode on cuda; the 8 QUERIES once untimed, then 3 timed passes,
+   every request answering 200 with candidates, NER with no fallback,
+   K1 launched on every timed request; the /query p50 and max, NER
+   forwards per request and ms per forward (beside the fused phase's
+   12-layer classifier's) printed.
+10. Prints one JSON line describing each kernel (K1, K2 and K5 with their
+   sharded launches and rows; K1 with its eval_gate and ner_train
+   launches), and as the last line {"ok": true, "device": {...}}.
 
 Any failed check raises: the script then exits non-zero. It also exits
 non-zero, printing no result, when CUDA is unavailable or when the
@@ -2313,6 +2332,362 @@ def train_phase(corpus) -> dict:
     return found
 
 
+# ---------------------------------------------------------------------------
+# NER-train phase (tools/train_ner.py): the token classifier at the tool's
+# defaults (256 hidden, 4 layers, 4 heads, bf16 compute, fp32 parameters)
+# on the tool's template batches; the tool end to end with its span eval;
+# then the API server in NER model mode over the trained weights, whose
+# exact searches launch K1.
+
+NER_BATCH, NER_SEQ, NER_HIDDEN, NER_LAYERS = 64, 64, 256, 4  # the tool's defaults
+NER_TOOL_STEPS = 3000  # the tool's default --steps
+NER_WARM, NER_TIMED, NER_PROFILED = 5, 50, 5
+NER_PAIR_STEPS, NER_PAIR_BATCH = 3, 8  # card against CPU
+NER_SERVE_PASSES = 3  # timed passes of QUERIES after one untimed warm pass
+NER_MIN_F1 = 0.95  # the trained model's span F1 floor (the JAX record: 1.0)
+NER_MIN_LOSS_DROP = 10.0  # the last logged loss at most a tenth of the first
+TOL_NER_TRAIN_BF16 = 2e-2  # bf16 dense layers round at other places on the two devices
+TOL_NER_TRAIN_FP32 = 5e-5  # fp32 sums in other orders (tests/test_torch_cuda_train_ner.py)
+
+
+def ner_batches(tok, titles, n: int, rows: int, seed: int):
+    """``n`` batches of ``rows`` as the tool draws them: one template draw
+    then its slots per example, from one seeded generator."""
+    import numpy as np
+
+    from rag_icd10_tpu_torch.tools import train_ner
+
+    label_to_id = {label: i for i, label in enumerate(train_ner.LABELS)}
+    rng = np.random.default_rng(seed)
+    return [train_ner.make_batch(tok, train_ner.draw_examples(rng, titles, rows), label_to_id,
+                                 NER_SEQ) for _ in range(n)]
+
+
+def ner_step_tflop(arch, rows: int, seq: int) -> float:
+    """Dense matmul TFLOP of one step (forward and backward, 3x the
+    forward's 2 flops a multiply-add): the projections and FFN on every
+    token, the attention products on every (query, key) pair, the head."""
+    h, inter = arch.hidden_size, arch.intermediate_size
+    per_token = arch.num_layers * (2 * (4 * h * h + 2 * h * inter) + 2 * 2 * seq * h) + 2 * h * 9
+    return 3 * rows * seq * per_token / 1e12
+
+
+def ner_card_vs_cpu_steps(arch, batches) -> dict:
+    """The same seeded steps on the card and on the CPU, bf16 compute (the
+    tool's) and fp32 compute, from init_ner_state's seed-0 weights under the
+    tool's schedule for --steps 10 (the first step at lr 0). Returns each
+    step's loss on both."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from rag_icd10_tpu_torch.parallel.train import warmup_cosine_decay_schedule
+    from rag_icd10_tpu_torch.tools import train_ner
+
+    schedule = warmup_cosine_decay_schedule(0.0, 3e-4, 2, 10)
+    out = {}
+    for name, dtype, tol in (("bf16", torch.bfloat16, TOL_NER_TRAIN_BF16),
+                             ("fp32", torch.float32, TOL_NER_TRAIN_FP32)):
+        losses = {}
+        for dev in (DEVICE, "cpu"):
+            state = train_ner.init_ner_state(dataclasses.replace(arch, compute_dtype=dtype),
+                                             schedule, seed=0, device=dev)
+            check(all(p.dtype == torch.float32 and p.device.type == torch.device(dev).type
+                      for p in state.model.parameters()), f"fp32 parameters on {dev}")
+            losses[dev] = [float(train_ner.ner_train_step(state, *b)[0]) for b in batches]
+            del state
+        err = max(abs(a - b) for a, b in zip(losses[DEVICE], losses["cpu"]))
+        check(all(np.isfinite(losses[DEVICE] + losses["cpu"])), f"finite NER {name} losses")
+        check(err <= tol, f"NER train {name} loss card vs CPU {err} > {tol}: {losses}")
+        out[name] = {"card": losses[DEVICE], "cpu": losses["cpu"], "max_abs_err": err,
+                     "tol": tol}
+    torch.cuda.empty_cache()
+    return out
+
+
+def ner_step_timing(arch, batches) -> dict:
+    """ms per step and tokens/s at the tool's batch over NER_TIMED steps
+    after NER_WARM (CUDA events; no read back inside the window, as the
+    tool reads its loss only on log steps), peak device memory, and the
+    card's busy share: the kernels' time per step over NER_PROFILED traced
+    steps (torch.profiler, CUDA activity only) over the untraced step
+    time, and over the traced steps' wall time."""
+    import numpy as np
+    import torch
+
+    from rag_icd10_tpu_torch.parallel.train import warmup_cosine_decay_schedule
+    from rag_icd10_tpu_torch.tools import train_ner
+
+    schedule = warmup_cosine_decay_schedule(0.0, 3e-4, min(100, NER_TOOL_STEPS // 10 + 1),
+                                            NER_TOOL_STEPS)
+    state = train_ner.init_ner_state(arch, schedule, seed=0, device=DEVICE)
+    step = train_ner.ner_train_step
+    torch.cuda.reset_peak_memory_stats()
+    for b in batches[:NER_WARM]:
+        float(step(state, *b)[0])
+    timed = batches[NER_WARM:NER_WARM + NER_TIMED]
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    losses = [step(state, *b)[0] for b in timed]
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / len(timed)
+    losses = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for b in batches[:NER_PROFILED]:
+            step(state, *b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages() if e.self_device_time_total > 0),
+                     key=lambda r: -r[1])
+    busy_ms = sum(ms_ for _, ms_, _ in kernels)
+    launches = sum(n for _, _, n in kernels)
+    check(all(np.isfinite(losses)), f"finite NER losses at batch {NER_BATCH}: {losses}")
+    check(0 < busy_ms <= wall_ms, f"the profiled NER steps' kernels: {busy_ms} ms in {wall_ms} ms")
+    tflop = ner_step_tflop(arch, NER_BATCH, NER_SEQ)
+    real_tokens = float(np.mean([b[1].sum() for b in timed]))
+    row = {"batch": NER_BATCH, "seq": NER_SEQ, "hidden": arch.hidden_size,
+           "layers": arch.num_layers, "heads": arch.num_heads, "vocab": arch.vocab_size,
+           "warm_steps": NER_WARM, "timed_steps": len(timed), "ms_per_step": ms,
+           "tokens_per_s": NER_BATCH * NER_SEQ / (ms / 1e3),
+           "real_tokens_per_step": real_tokens, "real_tokens_per_s": real_tokens / (ms / 1e3),
+           "peak_mem_gib": peak / 2**30, "step_tflop": tflop,
+           "tflop_per_s": tflop / (ms / 1e3),
+           "busy_ms_per_step": busy_ms / NER_PROFILED,
+           "busy_share": busy_ms / NER_PROFILED / ms,
+           "busy_share_traced": busy_ms / wall_ms,
+           "kernels_per_step": launches / NER_PROFILED,
+           "profiled_wall_ms_per_step": wall_ms / NER_PROFILED,
+           "top": [{"kernel": key[:80], "ms_per_step": v / NER_PROFILED,
+                    "count_per_step": n / NER_PROFILED} for key, v, n in kernels[:6]],
+           "losses": [losses[0], losses[-1]]}
+    del state
+    torch.cuda.empty_cache()
+    return row
+
+
+def ner_tool_run(corpus, out: Path) -> dict:
+    """``tools/train_ner.main`` end to end on the card at its defaults
+    (NER_TOOL_STEPS steps) over the corpus as a CSV (ICD_DATA_PATH): its
+    return code, its files and its eval.json, with the model's span F1 at
+    least NER_MIN_F1 and above the rules'. Every logged loss is read from
+    the tool's log records: all finite, and the last at most
+    1/NER_MIN_LOSS_DROP of the first. Where the trained weights load, on
+    which device and with how many fallbacks is serve_trained_ner's check."""
+    import csv
+    import logging
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from rag_icd10_tpu_torch.tools import train_ner
+
+    logged = []
+
+    class LossRecords(logging.Handler):
+        def emit(self, record):
+            if str(record.msg).startswith("step %d/%d loss="):
+                logged.append({"step": record.args[0], "loss": record.args[2],
+                               "token_acc": record.args[3], "steps_per_s": record.args[4]})
+
+    handler = LossRecords()
+    tool_log = logging.getLogger("rag_icd10_tpu_torch.train_ner")
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_path = Path(tmp) / "icd10.csv"
+        with open(csv_path, "w", newline="", encoding="utf-8") as f:
+            writer = csv.writer(f)
+            writer.writerow(["code", "disease"])
+            writer.writerows(zip(corpus.codes, corpus.titles))
+        env = {"ICD_DATA_PATH": str(csv_path), "NER_WEIGHTS_PATH": ""}
+        saved_env = {key: os.environ.get(key) for key in env}
+        os.environ.update(env)
+        tool_log.addHandler(handler)
+        try:
+            t = time.perf_counter()
+            rc = train_ner.main(["--steps", str(NER_TOOL_STEPS), "--out", str(out)],
+                                device=DEVICE)
+            total_s = time.perf_counter() - t
+        finally:
+            tool_log.removeHandler(handler)
+            for key, value in saved_env.items():
+                if value is None:
+                    os.environ.pop(key, None)
+                else:
+                    os.environ[key] = value
+    check(rc == 0, f"train_ner.main returned {rc}")
+    check((out / "eval.json").exists(), "train_ner wrote eval.json")
+    report = json.loads((out / "eval.json").read_text(encoding="utf-8"))
+    files = sorted(p.name for p in out.iterdir())
+    check({"params.npz", "vocab.txt", "config.json", "eval.json"} <= set(files),
+          f"the tool wrote the loader's layout: {files}")
+    expected = 1 + NER_TOOL_STEPS // 100  # step 1 and every --log-every (100)
+    check(len(logged) == expected and all(np.isfinite(r["loss"]) for r in logged),
+          f"{len(logged)} logged losses, all finite, of {expected}: {logged}")
+    check(logged[-1]["loss"] * NER_MIN_LOSS_DROP <= logged[0]["loss"],
+          f"the loss fell from {logged[0]['loss']} to {logged[-1]['loss']}")
+    check(report["model"]["f1"] >= NER_MIN_F1 and report["model"]["f1"] > report["rules"]["f1"],
+          f"the trained model's span F1 is at least {NER_MIN_F1} and beats the rules': {report}")
+    return {"steps": NER_TOOL_STEPS, "total_s": total_s,
+            "logged": [logged[0], logged[-1]], "model": report["model"],
+            "rules": report["rules"]}
+
+
+async def serve_trained_ner(cfg):
+    """The port's API server over the saved store, NER model mode with the
+    trained weights (NER_WEIGHTS_PATH set by the caller), two-step path
+    (FUSED_QUERY unset): QUERIES once untimed, then NER_SERVE_PASSES timed
+    passes, with K1's launches and the NER counts taken over the timed
+    requests; then the served classifier's ms per forward (host clock,
+    predict ends in its read back)."""
+    import aiohttp
+    from aiohttp import web
+
+    from rag_icd10_tpu_torch.api.app import APIServer
+
+    server = APIServer(config=cfg, device=DEVICE)
+    runner = web.AppRunner(server.app)
+    t0 = time.perf_counter()
+    await runner.setup()
+    site = web.TCPSite(runner, cfg.api.host, cfg.api.port)
+    await site.start()
+    run = {"startup_s": time.perf_counter() - t0, "latencies": [], "responses": []}
+    engine = server.engine
+    url = f"http://{cfg.api.host}:{cfg.api.port}"
+    try:
+        check(engine.matcher._fused is None, "FUSED_QUERY unset: the two-step path")
+        check(engine.ner.use_model and engine.ner._model is not None
+              and engine.ner._model.device.type == "cuda",
+              f"NER model mode loaded the trained weights on cuda ({engine.ner.fallback_reason})")
+        async with aiohttp.ClientSession() as session:
+            async def query_pass(lat):
+                for text, top_k in QUERIES:
+                    t = time.perf_counter()
+                    async with session.post(url + "/query",
+                                            json={"text": text, "top_k": top_k}) as resp:
+                        body = await resp.json()
+                        ms = (time.perf_counter() - t) * 1e3
+                        run["responses"].append((text, top_k, resp.status, body))
+                    if lat is not None:
+                        lat.append(ms)
+
+            await query_pass(None)  # warm, untimed
+            ner0 = engine.ner.stats()
+            zero_launch_counts()  # this path's timed requests only
+            for _ in range(NER_SERVE_PASSES):
+                await query_pass(run["latencies"])
+            run["launches"] = launch_counts()
+            ner1 = engine.ner.stats()
+        run["ner"] = {key: ner1[key] - ner0[key]
+                      for key in ("model_extractions", "rule_fallbacks", "model_forwards")}
+        run["ner_total_fallbacks"] = ner1["rule_fallbacks"]
+        clf = engine.ner._model
+        before, t = clf.forwards, time.perf_counter()
+        for _ in range(5):
+            for text, _ in QUERIES:
+                clf.predict(text)
+        run["ms_per_forward"] = (time.perf_counter() - t) * 1e3 / (clf.forwards - before)
+        run["arch"] = [clf.arch.num_layers, clf.arch.hidden_size, clf.arch.num_heads]
+    finally:
+        await runner.cleanup()
+    return run
+
+
+def ner_train_phase(corpus, cfg, fused_ner_ms: float) -> dict:
+    """Card against CPU at batch 8, the step's timing at batch 64, the tool
+    end to end with its span eval, then /query served with the trained
+    weights. ``fused_ner_ms`` is the fused phase's seeded 12-layer
+    classifier's ms per forward, for comparison."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from rag_icd10_tpu_torch import config as tconfig
+    from rag_icd10_tpu_torch.tools import train_ner
+
+    t0 = time.perf_counter()
+    titles = train_ner.disease_titles(corpus)
+    tok = train_ner.build_vocab(titles)
+    arch = train_ner.ner_arch(tok.vocab_size, NER_HIDDEN, NER_LAYERS, NER_SEQ)
+    check((arch.num_layers, arch.hidden_size, arch.num_heads, arch.intermediate_size,
+           arch.compute_dtype) == (4, 256, 4, 1024, torch.bfloat16),
+          f"the tool's default classifier, got {arch}")
+    found = {"titles": len(titles), "vocab": tok.vocab_size}
+    found["card_vs_cpu"] = ner_card_vs_cpu_steps(
+        arch, ner_batches(tok, titles, NER_PAIR_STEPS, NER_PAIR_BATCH, seed=1))
+    print("NER train card vs CPU " + json.dumps(found["card_vs_cpu"]), flush=True)
+    t = time.perf_counter()
+    batches = ner_batches(tok, titles, NER_WARM + NER_TIMED, NER_BATCH, seed=0)
+    draw_ms = (time.perf_counter() - t) * 1e3 / len(batches)
+    found["step"] = {**ner_step_timing(arch, batches), "host_draw_ms_per_batch": draw_ms}
+    step = found["step"]
+    print(f"NER train step: batch {NER_BATCH} x seq {NER_SEQ}, {step['ms_per_step']:.3f} ms "
+          f"per step, {step['tokens_per_s']:.0f} tokens/s, peak {step['peak_mem_gib']:.3f} GiB, "
+          f"busy share {step['busy_share']:.3f} ({step['kernels_per_step']:.0f} kernels a "
+          f"step); host make_batch {draw_ms:.3f} ms a batch", flush=True)
+    del batches
+    with tempfile.TemporaryDirectory() as tmp:
+        ner_dir = Path(tmp) / "ner"
+        found["tool"] = ner_tool_run(corpus, ner_dir)
+        tool = found["tool"]
+        print(f"NER tool: {tool['steps']} steps + span eval in {tool['total_s']:.1f} s; loss "
+              f"{tool['logged'][0]['loss']:.4f} -> {tool['logged'][-1]['loss']:.2e}; span P/R/F1 "
+              f"model {json.dumps(tool['model'])} rules {json.dumps(tool['rules'])}", flush=True)
+        env = {"NER_WEIGHTS_PATH": str(ner_dir), "FUSED_QUERY": None}
+        saved = {key: os.environ.get(key) for key in env}
+        for key, value in env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        ncfg = dataclasses.replace(cfg, api=dataclasses.replace(cfg.api, port=free_port()),
+                                   ner=tconfig.NERConfig(use_model=True))
+        try:
+            run = asyncio.run(serve_trained_ner(ncfg))
+        finally:
+            for key, value in saved.items():
+                if value is None:
+                    os.environ.pop(key, None)
+                else:
+                    os.environ[key] = value
+    n_req = len(run["latencies"])
+    for text, top_k, status, body in run["responses"]:
+        check(status == 200, f"NER-trained /query {text!r}: {status} {body}")
+        cands = body["candidates"]
+        check(1 <= len(cands) <= top_k and all(np.isfinite(c["score"]) for c in cands),
+              f"NER-trained /query {text!r}: {len(cands)} candidates")
+    check(run["ner"]["model_extractions"] > 0 and run["ner_total_fallbacks"] == 0,
+          f"NER model mode with no fallback: {run['ner']}, {run['ner_total_fallbacks']} in all")
+    check(run["launches"]["K1"] >= n_req,
+          f"K1 launched {run['launches']['K1']} times in {n_req} requests")
+    check(run["arch"] == [NER_LAYERS, NER_HIDDEN, NER_HIDDEN // 64], f"served {run['arch']}")
+    p50 = statistics.median(run["latencies"])
+    found["serve"] = {
+        "requests": n_req, "query_p50_ms": p50, "query_max_ms": max(run["latencies"]),
+        "startup_s": run["startup_s"], "k1_launches": run["launches"]["K1"],
+        "launches": run["launches"], "ner": run["ner"],
+        "ner_forwards_per_request": run["ner"]["model_forwards"] / n_req,
+        "ms_per_forward": run["ms_per_forward"],
+        "fused_phase_bert_base_ms_per_forward": fused_ner_ms,
+    }
+    serve = found["serve"]
+    print(f"/query trained NER: {n_req} timed requests after one warm pass, p50 {p50:.2f} ms, max "
+          f"{serve['query_max_ms']:.2f} ms; K1 {serve['k1_launches']} launches; NER "
+          f"{serve['ner_forwards_per_request']:.2f} forwards per request, "
+          f"{serve['ms_per_forward']:.3f} ms per forward (4 layers, 256 hidden) against "
+          f"{fused_ner_ms:.3f} ms for the seeded 12-layer classifier", flush=True)
+    found["phase_s"] = time.perf_counter() - t0
+    print("ner_train " + json.dumps(found), flush=True)
+    return found
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -2375,6 +2750,10 @@ def main() -> int:
     e2e["train"] = {key: train[key] for key in ("card_vs_cpu", "step", "phase_s")}
     e2e["eval_gate"] = {key: v for key, v in train["gate"].items() if key != "launches"}
     main_path["K1"]["launches_by_path"]["eval_gate"] = train["gate"]["k1_launches"]
+    ner_train = ner_train_phase(corpus, cfg, fused["ner_ms_per_forward_bf16"])
+    e2e["ner_train"] = {key: ner_train[key] for key in
+                        ("card_vs_cpu", "step", "tool", "serve", "phase_s")}
+    main_path["K1"]["launches_by_path"]["ner_train"] = ner_train["serve"]["k1_launches"]
     check(jax_before or sys.modules.get("jax") is None, "the port imported JAX")
     check(not any(m == "rag_icd10_tpu" or m.startswith("rag_icd10_tpu.")
                   for m in sys.modules), "the port imported the JAX package")

@@ -626,7 +626,12 @@ class APIServer:
 
 
 def main() -> None:
-    APIServer().run()
+    from ..utils.device_guard import acquire_device
+
+    # bound device acquisition: a card that never answers would otherwise
+    # hang the server before it binds its port, which supervisors misread
+    # as a slow warmup (utils/device_guard.py)
+    APIServer(device=acquire_device("cuda", what="serving startup")).run()
 
 
 if __name__ == "__main__":

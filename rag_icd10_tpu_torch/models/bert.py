@@ -160,13 +160,15 @@ class SentenceBert(nn.Module):
         return mean / norm
 
 
-def init_params(arch: BertArch, seed: int = 0) -> Dict:
+def init_params(arch: BertArch, seed: int = 0, num_labels: int = 0) -> Dict:
     """Deterministic random init (used when no converted weights exist),
     made with numpy and returned in the JAX package's parameter-tree
     layout, so it loads through ``convert_hf.params_from_jax`` and saves
     with ``convert_hf.save_params`` like converted weights. Dense kernels
     are (in, out) with std 1/sqrt(in), embeddings std 1/sqrt(hidden),
-    LayerNorm scale 1 and every bias 0."""
+    LayerNorm scale 1 and every bias 0. ``num_labels`` > 0 adds a token
+    classifier's ``classifier`` Dense (hidden, num_labels), drawn by the
+    same law from the same generator after the encoder's parameters."""
     rng = np.random.default_rng(seed)
     h, inter = arch.hidden_size, arch.intermediate_size
 
@@ -197,4 +199,7 @@ def init_params(arch: BertArch, seed: int = 0) -> Dict:
             "output": dense(inter, h),
             "output_ln": ln(),
         }
-    return {"bert": bert}
+    params = {"bert": bert}
+    if num_labels:
+        params["classifier"] = dense(h, num_labels)
+    return params

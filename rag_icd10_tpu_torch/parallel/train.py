@@ -317,7 +317,9 @@ def _loss(batch: Dict, za, zb, zh, temperature: float):
     return contrastive_loss(za, zb, temperature)
 
 
-def _apply(state: TrainState) -> None:
+def apply_update(state: TrainState) -> None:
+    """One AdamW update from the gradients in place, then the schedule's
+    next learning rate."""
     state.optimizer.step()
     state.optimizer.zero_grad(set_to_none=True)
     state.scheduler.step()
@@ -341,7 +343,7 @@ def make_train_step(temperature: float = 0.05):
         za, zb, zh = _embed(state.model, b)
         loss, acc = _loss(b, za, zb, zh, temperature)
         loss.backward()
-        _apply(state)
+        apply_update(state)
         return {"loss": loss.detach(), "accuracy": acc}
 
     return train_step
@@ -381,7 +383,7 @@ def make_sharded_train_step(mesh: Mesh, temperature: float = 0.05):
             for g in grads:
                 g.copy_(flat[offset:offset + g.numel()].view_as(g))
                 offset += g.numel()
-        _apply(state)
+        apply_update(state)
         return {"loss": loss.detach(), "accuracy": acc}
 
     return train_step

@@ -18,8 +18,10 @@ Behavioral spec (reference: tools/build_database.py):
 
 Records are length-sorted before batching, so each batch pads to a short
 length bucket, and re-scattered to corpus order. The builder runs on
-``cuda`` unless ``DatabaseBuilder(device="cpu")``; the JAX tool's compile
-cache and TPU device watchdog have no counterpart here.
+``cuda`` unless ``DatabaseBuilder(device="cpu")``. ``main`` acquires the
+card under the device guard (utils/device_guard.py); the JAX tool's
+compile cache maps to the kernel build directory that
+``ops/cuda_build.py`` keeps across processes.
 
     python -m rag_icd10_tpu_torch.tools.build_database --input <csv> --rebuild
 """
@@ -288,7 +290,9 @@ def main(argv=None, device: Union[str, torch.device] = "cuda") -> int:
     logging.basicConfig(
         level=logging.INFO, format="%(asctime)s %(name)s %(levelname)s %(message)s"
     )
-    builder = DatabaseBuilder(device=device)
+    from ..utils.device_guard import acquire_device
+
+    builder = DatabaseBuilder(device=acquire_device(device, what="database build"))
     if args.verify_only:
         ok = builder.verify_database()
     else:

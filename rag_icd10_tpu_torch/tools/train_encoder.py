@@ -21,8 +21,10 @@ come from the ICD corpus itself (no external data needed):
 Objective: bidirectional in-batch-negatives InfoNCE with hard negatives
 (sentence-transformers MultipleNegativesRankingLoss family), AdamW on fp32
 parameters with bf16 compute under optax's warmup-cosine schedule
-(parallel/train.py). Runs on ``cuda`` unless ``main(..., device="cpu")``;
-the JAX tool's compile cache and TPU device watchdog have no counterpart.
+(parallel/train.py). Runs on ``cuda`` unless ``main(..., device="cpu")``,
+acquiring the card under the device guard (utils/device_guard.py); the
+JAX tool's compile cache maps to the kernel build directory that
+``ops/cuda_build.py`` keeps across processes.
 
 Usage:
     python -m rag_icd10_tpu_torch.tools.train_encoder \
@@ -390,9 +392,9 @@ def main(argv=None, device: Union[str, torch.device] = "cuda") -> int:
         make_train_step,
         warmup_cosine_decay_schedule,
     )
-    from ..utils.device import resolve_device
+    from ..utils.device_guard import acquire_device
 
-    dev = resolve_device(device)
+    dev = acquire_device(device, what="encoder training")
     cfg = get_config()
     corpus = load_corpus(cfg.data_path)
     if args.plain_pairs:
