@@ -110,7 +110,19 @@
    ICD_DATA_PATH, 20 steps, --eval-gate 0.0): the gate must bless the
    weights, every loss must be finite, and the gate's searches must
    launch K1 (counted from 0 just before the run); the embed, the eval
-   and the whole run are timed, and the tiers printed.
+   and the whole run are timed, and the tiers printed. Its TP sub-phase
+   (parallel/tensor_parallel.py, the eighth slice) runs Megatron TP over
+   tp in {2, 4, 8} logical shards of cuda:0 (tp = 8 does not divide the 12
+   heads: q, k, v are gathered): the same seeded 3 steps at batch 8 against
+   tp = 1 on the card, bf16 and fp32, within the same tolerances; for tp
+   in {1, 2, 4, 8} at batch 256 ms per step, samples/s, kernels per step,
+   busy share, peak memory and each shard's parameter and moment bytes
+   (reckoned from the shapes and measured); one tp = 2 step over an NCCL
+   group of world size 1, equal to the local step to the bit, with its
+   all_reduce calls and NCCL kernels counted; then train_encoder.main with --dp 1 --tp 2 (only
+   this script swaps multihost.local_devices for two logical shards of
+   cuda:0) and --eval-gate 0.0: blessed, its checkpoint loaded in
+   TextEncoder, K1 launched by the gate (launches_by_path eval_gate_tp).
 9. NER-train phase (tools/train_ner.py): the token classifier at the
    tool's defaults (256 hidden, 4 layers, 4 heads, bf16 compute, fp32
    parameters) on the tool's template batches over the synthetic
@@ -131,8 +143,8 @@
    forwards per request and ms per forward (beside the fused phase's
    12-layer classifier's) printed.
 10. Prints one JSON line describing each kernel (K1, K2 and K5 with their
-   sharded launches and rows; K1 with its eval_gate and ner_train
-   launches), and as the last line {"ok": true, "device": {...}}.
+   sharded launches and rows; K1 with its eval_gate, eval_gate_tp and
+   ner_train launches), and as the last line {"ok": true, "device": {...}}.
 
 Any failed check raises: the script then exits non-zero. It also exits
 non-zero, printing no result, when CUDA is unavailable or when the
@@ -2202,13 +2214,15 @@ def train_timing(arch, params, batches) -> dict:
     return row
 
 
-def gate_run(corpus) -> dict:
+def gate_run(corpus, extra_args=(), extra_patches=()) -> dict:
     """``tools/train_encoder.main`` end to end on the card: the corpus as a
     CSV under a temporary directory (ICD_DATA_PATH), GATE_STEPS steps at
-    the CLI's defaults with --weighted-loss, then --eval-gate 0.0. The
-    embed and the eval are timed by wrapping the functions the gate calls;
-    every step's loss is recorded the same way; K1's launches are counted
-    over the whole run (training launches none)."""
+    the CLI's defaults with --weighted-loss and ``extra_args``, then
+    --eval-gate 0.0. The embed and the eval are timed by wrapping the
+    functions the gate calls; every step's loss is recorded the same way;
+    K1's launches are counted over the whole run (training launches none).
+    ``extra_patches`` are (module, name, value) set for the run only. The
+    written checkpoint must load in ``TextEncoder`` and embed QUERIES."""
     import csv
     import os
     import tempfile
@@ -2244,7 +2258,9 @@ def gate_run(corpus) -> dict:
 
     patches = [(build_database, "embed_sorted", timed(build_database.embed_sorted, "embed_s")),
                (retrieval, "evaluate", timed(retrieval.evaluate, "eval_s")),
-               (ptrain, "make_train_step", recording(ptrain.make_train_step))]
+               (ptrain, "make_train_step", recording(ptrain.make_train_step)),
+               (ptrain, "make_sharded_train_step", recording(ptrain.make_sharded_train_step)),
+               *extra_patches]
     saved_attrs = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     with tempfile.TemporaryDirectory() as tmp:
         csv_path = Path(tmp) / "icd10.csv"
@@ -2265,8 +2281,10 @@ def gate_run(corpus) -> dict:
             rc = train_encoder.main(
                 ["--steps", str(GATE_STEPS), "--batch", str(TRAIN_BATCH), "--weighted-loss",
                  "--eval-gate", "0.0", "--out", str(out), "--log-every", "5",
-                 "--save-every", "0"], device=DEVICE)
+                 "--save-every", "0", *extra_args], device=DEVICE)
             total_s = time.perf_counter() - t
+            counts = launch_counts()
+            embedded = checkpoint_embeds(out)
         finally:
             for mod, name, fn in saved_attrs:
                 setattr(mod, name, fn)
@@ -2275,7 +2293,6 @@ def gate_run(corpus) -> dict:
                     os.environ.pop(key, None)
                 else:
                     os.environ[key] = value
-        counts = launch_counts()
         gate = json.loads((out / "eval_gate.json").read_text(encoding="utf-8"))
         files = sorted(p.name for p in out.iterdir())
     check(rc == 0 and gate["blessed"] is True, f"the gate blessed the weights: rc {rc}, {gate}")
@@ -2284,11 +2301,251 @@ def gate_run(corpus) -> dict:
     check(counts["K1"] > 0, f"the gate's searches launched K1: {counts}")
     check({"params.npz", "vocab.txt", "opt_state.npz", "eval_gate.json"} <= set(files),
           f"the CLI wrote its checkpoint: {files}")
-    return {"steps": GATE_STEPS, "total_s": total_s, **seconds,
+    return {"steps": GATE_STEPS, "args": list(extra_args), "total_s": total_s, **seconds,
+            "checkpoint_embeds": embedded,
             "train_and_other_s": total_s - seconds["embed_s"] - seconds["eval_s"],
             "losses": losses, "k1_launches": counts["K1"], "launches": counts,
             "blessed": gate["blessed"], "candidate": gate["candidate"],
             "gate_metric": gate["gate_metric"], "tiers": gate["tiers"]}
+
+
+def checkpoint_embeds(out: Path) -> list:
+    """Load the CLI's ``params.npz`` and ``vocab.txt`` in ``TextEncoder``
+    on the card and embed QUERIES: finite unit vectors of the encoder's
+    width. Returns their shape."""
+    import numpy as np
+
+    from rag_icd10_tpu_torch.config import get_config
+    from rag_icd10_tpu_torch.models.convert_hf import load_params
+    from rag_icd10_tpu_torch.models.encoder import TextEncoder
+    from rag_icd10_tpu_torch.models.tokenizer import WordPieceTokenizer
+
+    tok = WordPieceTokenizer.from_vocab_file(str(out / "vocab.txt"))
+    encoder = TextEncoder(get_config().encoder, tokenizer=tok,
+                          params=load_params(str(out / "params.npz")), device=DEVICE)
+    vectors = encoder.encode_queries([text for text, _ in QUERIES])
+    check(vectors.shape == (len(QUERIES), DIM) and np.isfinite(vectors).all()
+          and np.allclose(np.linalg.norm(vectors, axis=1), 1.0, atol=1e-3),
+          f"the checkpoint embeds QUERIES: {vectors.shape}")
+    return list(vectors.shape)
+
+
+# ---------------------------------------------------------------------------
+# TP sub-phase of the train phase (parallel/tensor_parallel.py, --tp):
+# Megatron TP over logical tp shards of cuda:0 at full width, against tp = 1
+# on the card; its cost at batch 256; one step over an NCCL group of world
+# size 1; the CLI with --dp 1 --tp 2 and its eval gate.
+
+TP_COUNTS = (2, 4, 8)  # tp = 8 does not divide BERT-base's 12 heads: q, k, v are gathered
+TP_WARM, TP_TIMED, TP_PROFILED = 2, 8, 2
+
+
+def tp_bytes(arch, model, optimizer, tp: int) -> dict:
+    """fp32 bytes one tp shard holds, parameters and Adam moments:
+    reckoned from the parameter tree's shapes and the Megatron rules, and
+    measured on the state's tensors (tp shard 0 and the replicated
+    parameters)."""
+    import math
+
+    from rag_icd10_tpu_torch.parallel.mesh import _spec_for_path
+    from rag_icd10_tpu_torch.parallel.tensor_parallel import param_shapes, split_dim
+
+    reckoned = sum(4 * math.prod(shape) // (1 if split_dim(_spec_for_path(path)) is None else tp)
+                   for path, shape in param_shapes(arch).items())
+    if tp == 1:
+        params = list(model.parameters())
+    else:
+        params = list(model.replicated.values()) + list(model.shards[0].values())
+    measured = sum(p.numel() * p.element_size() for p in params)
+    moments = sum(t.numel() * t.element_size() for p in params
+                  for key, t in optimizer.state.get(p, {}).items() if key != "step")
+    return {"param_bytes_reckoned": reckoned, "param_bytes": measured,
+            "moment_bytes_reckoned": 2 * reckoned, "moment_bytes": moments}
+
+
+def tp_state(arch, params, tp: int, schedule):
+    """(state, step) at tp logical shards of the card (tp = 1: the plain
+    single-device step)."""
+    from rag_icd10_tpu_torch.parallel import TensorParallelBert, make_mesh
+    from rag_icd10_tpu_torch.parallel.train import (
+        init_train_state,
+        make_sharded_train_step,
+        make_train_step,
+    )
+
+    if tp == 1:
+        return (init_train_state(arch, params=params, schedule=schedule, device=DEVICE),
+                make_train_step())
+    mesh = make_mesh(dp=1, tp=tp, devices=[DEVICE] * tp, distributed=False)
+    state = init_train_state(arch, mesh=mesh, params=params, schedule=schedule)
+    check(isinstance(state.model, TensorParallelBert) and len(state.model.shards) == tp,
+          f"a TP model of {tp} shards")
+    return state, make_sharded_train_step(mesh)
+
+
+def tp_card_vs_tp1(arch, params, batches) -> dict:
+    """The same seeded steps at batch 8 at tp in TP_COUNTS and at tp = 1,
+    on the card, bf16 and fp32 compute, under the CLI's schedule for
+    --steps 20: each step's loss within the train phase's tolerances."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from rag_icd10_tpu_torch.parallel.train import warmup_cosine_decay_schedule
+
+    schedule = warmup_cosine_decay_schedule(0.0, 1e-4, min(100, GATE_STEPS // 10 + 1),
+                                            GATE_STEPS)
+    out = {}
+    for name, dtype, tol in (("bf16", torch.bfloat16, TOL_TRAIN_BF16),
+                             ("fp32", torch.float32, TOL_TRAIN_FP32)):
+        a = dataclasses.replace(arch, compute_dtype=dtype)
+        losses = {}
+        for tp in (1, *TP_COUNTS):
+            state, step = tp_state(a, params, tp, schedule)
+            check(all(p.dtype == torch.float32 and p.device.type == "cuda"
+                      for p in state.model.parameters()), f"fp32 parameters on the card, tp {tp}")
+            losses[tp] = [float(step(state, b)["loss"]) for b in batches]
+            del state
+        errs = {tp: max(abs(x - y) for x, y in zip(losses[tp], losses[1])) for tp in TP_COUNTS}
+        check(all(np.isfinite(v).all() for v in losses.values()), f"finite {name} losses")
+        check(max(errs.values()) <= tol, f"TP {name} loss against tp = 1: {errs} > {tol}")
+        out[name] = {"losses": {f"tp{tp}": v for tp, v in losses.items()},
+                     "max_abs_err": {f"tp{tp}": e for tp, e in errs.items()}, "tol": tol}
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_timing(arch, params, batches) -> list:
+    """For tp in (1, *TP_COUNTS) at batch 256: ms per step and samples/s
+    over TP_TIMED steps after TP_WARM (CUDA events; each step reads its loss
+    back), kernels per step and the card's busy share over TP_PROFILED
+    traced steps (torch.profiler), peak device memory, and each shard's
+    parameter and moment bytes."""
+    import numpy as np
+    import torch
+
+    rows = []
+    for tp in (1, *TP_COUNTS):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, step = tp_state(arch, params, tp, 1e-4)
+        for b in batches[:TP_WARM]:
+            float(step(state, b)["loss"])
+        timed = batches[TP_WARM:TP_WARM + TP_TIMED]
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        losses = [float(step(state, b)["loss"]) for b in timed]
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / len(timed)
+        peak = torch.cuda.max_memory_allocated()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for b in batches[:TP_PROFILED]:
+                float(step(state, b)["loss"])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        events = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
+                        key=lambda e: -e.self_device_time_total)
+        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+        check(all(np.isfinite(losses)), f"finite losses at tp {tp}: {losses}")
+        check(0 < busy_ms <= wall_ms, f"tp {tp}: kernels {busy_ms} ms in {wall_ms} ms")
+        row = {"tp": tp, "batch": TRAIN_BATCH, "ms_per_step": ms,
+               "samples_per_s": TRAIN_BATCH / (ms / 1e3), "peak_mem_gib": peak / 2**30,
+               "kernels_per_step": sum(e.count for e in events) / TP_PROFILED,
+               "busy_ms_per_step": busy_ms / TP_PROFILED,
+               "busy_share": busy_ms / TP_PROFILED / ms,
+               "busy_share_traced": busy_ms / wall_ms,
+               **tp_bytes(arch, state.model, state.optimizer, tp), "losses": losses,
+               "top": [{"kernel": e.key[:80], "ms_per_step": e.self_device_time_total / 1e3
+                        / TP_PROFILED, "count_per_step": e.count / TP_PROFILED}
+                       for e in events[:6]]}
+        rows.append(row)
+        print(f"train TP step: tp {tp}, batch {TRAIN_BATCH}, {ms:.2f} ms per step, "
+              f"{row['samples_per_s']:.1f} samples/s, {row['kernels_per_step']:.0f} kernels, "
+              f"busy share {row['busy_share']:.3f}, peak {row['peak_mem_gib']:.2f} GiB, shard "
+              f"params {row['param_bytes'] / 2**20:.1f} MiB (reckoned "
+              f"{row['param_bytes_reckoned'] / 2**20:.1f}), moments "
+              f"{row['moment_bytes'] / 2**20:.1f} MiB", flush=True)
+        del state
+    torch.cuda.empty_cache()
+    return rows
+
+
+def tp_nccl_row(arch, params, batch) -> dict:
+    """One tp = 2 step over a distributed mesh (NCCL at world size 1),
+    whose tp reductions run through the autograd Functions' all_reduces on
+    the card, against the same step on a mesh without a process group:
+    the loss and every parameter equal to the bit. torch.profiler counts
+    the step's all_reduce calls (their CPU ops) and its NCCL kernels (an
+    in-place sum over one rank may launch none)."""
+    import torch
+    import torch.distributed as dist
+
+    from rag_icd10_tpu_torch.parallel import make_mesh, multihost
+    from rag_icd10_tpu_torch.parallel.train import init_train_state, make_sharded_train_step
+
+    dev = torch.device(DEVICE, 0)
+    local = make_mesh(dp=1, tp=2, devices=[dev] * 2, distributed=False)
+    plain = init_train_state(arch, mesh=local, params=params, schedule=1e-4)
+    want = float(make_sharded_train_step(local)(plain, batch)["loss"])
+    multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0, local_device_count=1,
+                         device=DEVICE, timeout_s=60)
+    try:
+        mesh = make_mesh(dp=1, tp=2, devices=[dev] * 2)
+        check(mesh.group is not None and dist.get_backend(mesh.group) == "nccl",
+              "an NCCL mesh")
+        state = init_train_state(arch, mesh=mesh, params=params, schedule=1e-4)
+        check(state.model.group is not None, "the TP model holds the tp process group")
+        step = make_sharded_train_step(mesh)
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            got = float(step(state, batch)["loss"])
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        calls = sum(e.count for e in events if e.key.startswith("c10d::allreduce"))
+        nccl = sum(e.count for e in events
+                   if "nccl" in e.key.lower() and e.self_device_time_total > 0)
+        same = all(torch.equal(a, b) for a, b in zip(state.model.parameters(),
+                                                      plain.model.parameters()))
+    finally:
+        multihost.shutdown()
+    check(got == want and same, f"the NCCL step equals the local one: loss {got} vs {want}, "
+          f"parameters equal {same}")
+    check(calls > 0, "the step issued all_reduce calls")
+    row = {"tp": 2, "world_size": 1, "loss": got, "local_loss": want, "params_equal": same,
+           "all_reduce_calls": calls, "nccl_kernels": nccl}
+    print("train TP nccl " + json.dumps(row), flush=True)
+    return row
+
+
+def tp_phase(corpus, tok, arch, params, batches) -> dict:
+    """The TP sub-phase: card TP against card tp = 1 at batch 8, the
+    timing at batch 256, the NCCL row, then the CLI with --dp 1 --tp 2 over
+    two logical shards of cuda:0 (only this harness swaps
+    ``multihost.local_devices``: one card forms no tp = 2 mesh otherwise)
+    and its eval gate, whose K1 launches it counts."""
+    import torch
+
+    from rag_icd10_tpu_torch.parallel import multihost
+
+    t0 = time.perf_counter()
+    pairs = train_batches(corpus, tok, TRAIN_PAIR_STEPS, TRAIN_PAIR_BATCH, seed=1)
+    found = {"card_vs_tp1": tp_card_vs_tp1(arch, params, pairs)}
+    print("train TP card vs tp 1 " + json.dumps(found["card_vs_tp1"]), flush=True)
+    found["steps"] = tp_timing(arch, params, batches)
+    found["nccl"] = tp_nccl_row(arch, params, pairs[0])
+    two = [torch.device(DEVICE, 0)] * 2
+    found["gate"] = gate_run(corpus, ["--dp", "1", "--tp", "2"],
+                             [(multihost, "local_devices", lambda device_type=None: two)])
+    gate = found["gate"]
+    print(f"eval gate (--dp 1 --tp 2): {gate['steps']} steps + gate in {gate['total_s']:.1f} s "
+          f"(embed {gate['embed_s']:.1f} s, eval {gate['eval_s']:.1f} s), K1 "
+          f"{gate['k1_launches']} launches, blessed {gate['blessed']}, checkpoint embeds "
+          f"{gate['checkpoint_embeds']}", flush=True)
+    found["phase_s"] = time.perf_counter() - t0
+    return found
 
 
 def train_phase(corpus) -> dict:
@@ -2321,12 +2578,13 @@ def train_phase(corpus) -> dict:
           f"{step['tflop_per_s']:.1f} TFLOP/s dense ({step['bf16_peak_share']:.3f} of the bf16 "
           f"peak), busy share {step['busy_share']:.3f}; host draw "
           f"{draw_ms:.1f} ms a batch", flush=True)
-    del params, batches
     found["gate"] = gate_run(corpus)
     gate = found["gate"]
     print(f"eval gate: {gate['steps']} steps + gate in {gate['total_s']:.1f} s (embed "
           f"{gate['embed_s']:.1f} s, eval {gate['eval_s']:.1f} s), K1 {gate['k1_launches']} "
           f"launches, blessed {gate['blessed']}, tiers {json.dumps(gate['tiers'])}", flush=True)
+    found["tp"] = tp_phase(corpus, tok, arch, params, batches)
+    del params, batches
     found["phase_s"] = time.perf_counter() - t0
     print("train " + json.dumps(found), flush=True)
     return found
@@ -2750,6 +3008,10 @@ def main() -> int:
     e2e["train"] = {key: train[key] for key in ("card_vs_cpu", "step", "phase_s")}
     e2e["eval_gate"] = {key: v for key, v in train["gate"].items() if key != "launches"}
     main_path["K1"]["launches_by_path"]["eval_gate"] = train["gate"]["k1_launches"]
+    e2e["train_tp"] = {key: v for key, v in train["tp"].items() if key != "gate"}
+    e2e["eval_gate_tp"] = {key: v for key, v in train["tp"]["gate"].items()
+                           if key not in ("launches", "tiers")}
+    main_path["K1"]["launches_by_path"]["eval_gate_tp"] = train["tp"]["gate"]["k1_launches"]
     ner_train = ner_train_phase(corpus, cfg, fused["ner_ms_per_forward_bf16"])
     e2e["ner_train"] = {key: ner_train[key] for key in
                         ("card_vs_cpu", "step", "tool", "serve", "phase_s")}

@@ -11,11 +11,12 @@ the JAX store (exact, approx, fast, streaming, chunkstream, int8, host +
 sketch, hnsw, remote), corpus-sharded search over a device mesh
 (``parallel/``, NCCL or gloo across processes), NER model mode, the
 fused query engine, weight conversion, the store builder
-(``tools/build_database.py``), encoder training with the retrieval eval
-and its gate, and NER training (``tools/train_ner.py``). Each TPU kernel
-is a hand-written CUDA kernel under ``ops/csrc/``. Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``. Megatron TP training
-is not ported yet (see ROADMAP.md).
+(``tools/build_database.py``), encoder training, data parallel and
+Megatron tensor parallel (``parallel/tensor_parallel.py``), with the
+retrieval eval and its gate, and NER training (``tools/train_ner.py``):
+everything the JAX package does. Each TPU kernel is a hand-written CUDA
+kernel under ``ops/csrc/``. Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

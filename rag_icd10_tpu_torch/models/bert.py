@@ -82,19 +82,45 @@ class BertSelfAttention(nn.Module):
 
     def forward(self, hidden: torch.Tensor, attn_bias: torch.Tensor) -> torch.Tensor:
         a = self.arch
-        head_dim = a.hidden_size // a.num_heads
-        b, s, _ = hidden.shape
-
-        def split(x):  # (B, S, H) -> (B, heads, S, head_dim)
-            return x.view(b, s, a.num_heads, head_dim).transpose(1, 2)
-
-        q, k, v = split(self.query(hidden)), split(self.key(hidden)), split(self.value(hidden))
-        scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(head_dim)
-        scores = scores + attn_bias  # (B, 1, 1, S) additive mask
-        probs = torch.softmax(scores, dim=-1).to(a.compute_dtype)
-        ctx = torch.matmul(probs, v)
-        ctx = ctx.transpose(1, 2).reshape(b, s, a.hidden_size)
+        ctx = attention(self.query(hidden), self.key(hidden), self.value(hidden), attn_bias,
+                        a.hidden_size // a.num_heads, a.compute_dtype)
         return self.out(ctx)
+
+
+def attention(q, k, v, attn_bias, head_dim: int, compute_dtype) -> torch.Tensor:
+    """Multi-head attention over (B, S, heads * head_dim) projections in
+    the compute dtype: fp32 logits and softmax, the probabilities back in
+    the compute dtype for the value product; returns the (B, S, width)
+    context. ``attn_bias`` is ``attention_bias``'s (B, 1, 1, S)."""
+    b, s, width = q.shape
+
+    def split(x):  # (B, S, W) -> (B, heads, S, head_dim)
+        return x.view(b, s, width // head_dim, head_dim).transpose(1, 2)
+
+    q, k, v = split(q), split(k), split(v)
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(head_dim)
+    scores = scores + attn_bias  # (B, 1, 1, S) additive mask
+    probs = torch.softmax(scores, dim=-1).to(compute_dtype)
+    ctx = torch.matmul(probs, v)
+    return ctx.transpose(1, 2).reshape(b, s, width)
+
+
+def attention_bias(attention_mask: torch.Tensor) -> torch.Tensor:
+    """(B, S) mask -> (B, 1, 1, S) additive bias: 0 where attended,
+    ``finfo(float32).min`` at padding."""
+    bias = (1.0 - attention_mask.float()) * torch.finfo(torch.float32).min
+    return bias[:, None, None, :]
+
+
+def mean_pool_normalize(hidden: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+    """Masked mean over the sequence of fp32 hidden states, then L2
+    normalization: the sentence embeddings."""
+    mask = attention_mask.float()[:, :, None]
+    summed = torch.sum(hidden * mask, dim=1)
+    counts = torch.clamp(torch.sum(mask, dim=1), min=1e-9)
+    mean = summed / counts
+    norm = torch.clamp(torch.linalg.vector_norm(mean, dim=-1, keepdim=True), min=1e-12)
+    return mean / norm
 
 
 class BertLayer(nn.Module):
@@ -135,8 +161,7 @@ class BertEncoder(nn.Module):
             + self.position_embeddings(pos_ids)
             + self.token_type_embeddings(token_type_ids)
         )
-        attn_bias = (1.0 - attention_mask.float()) * torch.finfo(torch.float32).min
-        attn_bias = attn_bias[:, None, None, :]
+        attn_bias = attention_bias(attention_mask)
         for layer in self.layers:
             hidden = layer(hidden, attn_bias)
         return hidden.float()
@@ -151,13 +176,8 @@ class SentenceBert(nn.Module):
         self.bert = BertEncoder(arch)
 
     def forward(self, input_ids, attention_mask, token_type_ids) -> torch.Tensor:
-        hidden = self.bert(input_ids, attention_mask, token_type_ids)
-        mask = attention_mask.float()[:, :, None]
-        summed = torch.sum(hidden * mask, dim=1)
-        counts = torch.clamp(torch.sum(mask, dim=1), min=1e-9)
-        mean = summed / counts
-        norm = torch.clamp(torch.linalg.vector_norm(mean, dim=-1, keepdim=True), min=1e-12)
-        return mean / norm
+        return mean_pool_normalize(self.bert(input_ids, attention_mask, token_type_ids),
+                                   attention_mask)
 
 
 def init_params(arch: BertArch, seed: int = 0, num_labels: int = 0) -> Dict:

@@ -260,16 +260,13 @@ def opt_state_from_jax(leaves, model) -> Dict[int, Dict[str, torch.Tensor]]:
     ``exp_avg_sq`` (``nu``), kernels transposed to ``nn.Linear``'s
     layout."""
     order = _jax_leaf_order(model)
-    n = len(order)
-    if len(leaves) not in (2 * n + 1, 2 * n + 2):
-        raise ValueError(f"{len(leaves)} optimizer leaves for {n} parameters "
-                         f"(expected {2 * n + 1} or {2 * n + 2})")
-    step = torch.tensor(float(np.asarray(leaves[0])), dtype=torch.float32)
+    count, mu, nu = split_adam_leaves(leaves, len(order))
+    step = torch.tensor(float(count), dtype=torch.float32)
     params = list(model.parameters())
     state: Dict[int, Dict[str, torch.Tensor]] = {}
     for j, (i, transposed) in enumerate(order):
         moments = []
-        for leaf in (leaves[1 + j], leaves[1 + n + j]):
+        for leaf in (mu[j], nu[j]):
             x = torch.from_numpy(np.array(leaf, dtype=np.float32))
             moments.append((x.T if transposed else x).contiguous().to(params[i].device))
         state[i] = {"step": step.clone(), "exp_avg": moments[0], "exp_avg_sq": moments[1]}
@@ -297,5 +294,20 @@ def opt_state_to_jax(optimizer, model) -> List[np.ndarray]:
             pair.append((x.T if transposed else x).contiguous().numpy())
         mu.append(pair[0])
         nu.append(pair[1])
+    return adam_leaves(count, mu, nu)
+
+
+def adam_leaves(count: int, mu: List[np.ndarray], nu: List[np.ndarray]) -> List[np.ndarray]:
+    """``optax.adamw(schedule)``'s leaves: the Adam count, ``mu`` and
+    ``nu`` in the parameter tree's leaf order, the schedule's count."""
     counts = [np.asarray(count, np.int32)]
-    return counts + mu + nu + counts
+    return counts + list(mu) + list(nu) + counts
+
+
+def split_adam_leaves(leaves, n: int) -> Tuple[int, list, list]:
+    """(count, mu, nu) of an ``optax.adamw`` state's leaves over ``n``
+    parameters, with or without the schedule's count."""
+    if len(leaves) not in (2 * n + 1, 2 * n + 2):
+        raise ValueError(f"{len(leaves)} optimizer leaves for {n} parameters "
+                         f"(expected {2 * n + 1} or {2 * n + 2})")
+    return int(np.asarray(leaves[0])), list(leaves[1:1 + n]), list(leaves[1 + n:1 + 2 * n])

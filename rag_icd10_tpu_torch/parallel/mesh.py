@@ -20,12 +20,17 @@ mesh's other axes.
 The training step (parallel/train.py) reads the JAX module's sharding
 rules (:49-96) in the same form: a ``PartitionSpec`` is a tuple holding,
 per array axis, the mesh axis it splits over or None. Batches split over
-``dp``; the Megatron rules split parameters over ``tp``, which the port's
-step does not run yet (it raises for ``tp`` > 1).
+``dp``; the Megatron rules split parameters over ``tp``
+(parallel/tensor_parallel.py). ``train_layout`` places this rank on a
+(dp, tp) mesh: its dp and tp indices, its device, and the process groups
+of its tp peers (same dp indices) and dp peers (same tp indices).
+Several tp indices on one device are logical tp shards, each held and
+computed separately; several dp indices on one device act as one replica.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import re
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -199,3 +204,102 @@ def batch_sharding(mesh: Mesh) -> PartitionSpec:
 
 def replicated(mesh: Mesh) -> PartitionSpec:
     return ()
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainLayout:
+    """Where this rank sits on a (dp, tp) mesh for training.
+
+    dp_indices, tp_indices: the contiguous dp and tp indices it holds
+    n_dp, n_tp:             the mesh's dp and tp sizes
+    device:                 the one device its cells sit on
+    tp_group, dp_group:     the process groups of the ranks that share its
+                            dp indices (tp peers, itself included) and of
+                            those that share its tp indices (dp peers);
+                            None when the mesh has no process group. Group
+                            rank order is index order."""
+
+    dp_indices: Tuple[int, ...]
+    tp_indices: Tuple[int, ...]
+    n_dp: int
+    n_tp: int
+    device: torch.device
+    tp_group: object = None
+    dp_group: object = None
+
+
+def _contiguous(indices: Sequence[int]) -> bool:
+    return list(indices) == list(range(indices[0], indices[0] + len(indices)))
+
+
+def train_layout(mesh: Mesh) -> TrainLayout:
+    """This rank's ``TrainLayout`` on ``mesh`` (axes "dp" and, optionally,
+    "tp"). Every rank of the mesh's group must call it, in the same order
+    as its other collectives: it creates the tp and dp process groups
+    (``dist.new_group``, one per distinct member list, in the same order on
+    every rank). The layout is kept on the mesh, so later calls create
+    nothing.
+
+    Each rank's cells must form a block of contiguous dp indices by
+    contiguous tp indices on one device, the blocks must tile the grid,
+    and the ranks of a group must hold equal blocks in index order;
+    ``ValueError`` otherwise."""
+    cached = getattr(mesh, "_train_layout", None)
+    if cached is not None:
+        return cached
+    axes = [mesh.axis_names.index("dp")]
+    if "tp" in mesh.axis_names:
+        axes.append(mesh.axis_names.index("tp"))
+    ranks = np.moveaxis(mesh.ranks, axes, list(range(len(axes))))
+    devices = np.moveaxis(mesh.devices, axes, list(range(len(axes))))
+    if ranks.ndim != 2:
+        ranks, devices = ranks.reshape(-1, 1), devices.reshape(-1, 1)
+    n_dp, n_tp = ranks.shape
+    blocks: Dict[int, Tuple[Tuple[int, ...], Tuple[int, ...]]] = {}
+    for r in np.unique(ranks).tolist():
+        rows, cols = np.nonzero(ranks == r)
+        ds, ts = tuple(sorted(set(rows.tolist()))), tuple(sorted(set(cols.tolist())))
+        if len(rows) != len(ds) * len(ts) or not (_contiguous(ds) and _contiguous(ts)):
+            raise ValueError(f"rank {r} holds cells {list(zip(rows, cols))} of {mesh}: "
+                             "not a block of contiguous dp by tp indices")
+        if len({str(devices[d, t]) for d in ds for t in ts}) != 1:
+            raise ValueError(f"rank {r} holds (dp, tp) cells on several devices of {mesh}: "
+                             "a rank's cells must share one device (one process per card)")
+        blocks[r] = (ds, ts)
+    if mesh.rank not in blocks:
+        raise ValueError(f"rank {mesh.rank} holds no cell of {mesh}")
+
+    def members(axis: int) -> List[Tuple[int, ...]]:
+        """The distinct groups of ranks sharing their indices on ``axis``
+        (0: dp, giving the tp groups; 1: tp, giving the dp groups)."""
+        by_key: Dict[Tuple[int, ...], List[int]] = {}
+        for r, block in blocks.items():
+            by_key.setdefault(block[axis], []).append(r)
+        keys = sorted(by_key)
+        if any(set(a) & set(b) for a, b in zip(keys, keys[1:])):
+            raise ValueError(f"the ranks' blocks do not tile {mesh}")
+        out = []
+        for key in keys:
+            group = sorted(by_key[key])
+            spans = [blocks[r][1 - axis] for r in group]
+            if len({len(x) for x in spans}) != 1 or spans != sorted(spans):
+                raise ValueError(f"ranks {group} of {mesh} hold unequal blocks or hold them "
+                                 "out of rank order")
+            out.append(tuple(group))
+        return out
+
+    tp_members, dp_members = members(0), members(1)
+    groups = {}
+    if mesh.group is not None:
+        world = dist.get_world_size(mesh.group)
+        for ranks_ in tp_members + dp_members:
+            if ranks_ not in groups:
+                groups[ranks_] = (mesh.group if len(ranks_) == world
+                                  else dist.new_group(list(ranks_)))
+    ds, ts = blocks[mesh.rank]
+    mine_tp = next(m for m in tp_members if mesh.rank in m)
+    mine_dp = next(m for m in dp_members if mesh.rank in m)
+    layout = TrainLayout(ds, ts, n_dp, n_tp, devices[ds[0], ts[0]],
+                         groups.get(mine_tp), groups.get(mine_dp))
+    mesh._train_layout = layout
+    return layout

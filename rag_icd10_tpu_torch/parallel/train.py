@@ -1,4 +1,5 @@
-"""Contrastive encoder training, single-device or data-parallel over ranks.
+"""Contrastive encoder training: single-device, or data- and tensor-parallel
+over a (dp, tp) mesh.
 
 Counterpart of rag_icd10_tpu/parallel/train.py: in-batch-negatives
 bidirectional InfoNCE (the sentence-transformers
@@ -22,7 +23,13 @@ hard negatives and the served level weights folded into the logits.
   ``all_reduce`` sums the shares. The step's loss and update equal the
   single-device step over the whole batch. Ranks join through
   ``torch.distributed`` (parallel/multihost.py): gloo between CPU
-  processes, NCCL between cards. Megatron TP (``tp`` > 1) is not ported.
+  processes, NCCL between cards.
+- With ``tp`` > 1 the model is ``TensorParallelBert``
+  (parallel/tensor_parallel.py): Megatron tensor parallelism by the JAX
+  package's rules, each tp shard's AdamW moments living with its
+  parameters (``opt_state_shardings``). The dp exchanges (the embedding
+  gather, the gradient ``all_reduce``) run over the dp group, the ranks
+  that hold the same tp shards (parallel/mesh.py ``train_layout``).
 
 The forward and backward are plain PyTorch autograd: no Pallas kernel of
 the JAX package has a backward pass (XLA differentiates the model there).
@@ -42,13 +49,16 @@ from torch.optim.lr_scheduler import LambdaLR
 
 from ..models.bert import BertArch, SentenceBert, init_params
 from ..models.convert_hf import (
+    adam_leaves,
     opt_state_from_jax,
     opt_state_to_jax,
     params_from_jax,
     params_to_jax,
+    split_adam_leaves,
 )
 from ..utils.device import resolve_device
-from .mesh import Mesh, batch_sharding
+from .mesh import Mesh, PartitionSpec, _spec_for_path, train_layout
+from .tensor_parallel import TensorParallelBert, _flatten, _nest, _piece, split_dim
 
 Schedule = Union[float, Callable[[int], float]]
 
@@ -183,6 +193,11 @@ class TrainState:
         """Updates applied so far (optax's count)."""
         return self.scheduler.last_epoch
 
+    @property
+    def num_leaves(self) -> int:
+        """Leaves of the JAX-layout parameter tree."""
+        return len(list(self.model.parameters()))
+
     def params(self) -> Dict:
         """The parameters as a JAX-layout tree of fp32 numpy arrays
         (``save_params``, ``TextEncoder(params=...)``)."""
@@ -199,31 +214,71 @@ class TrainState:
         sd = self.optimizer.state_dict()
         sd["state"] = opt_state_from_jax(leaves, self.model)
         self.optimizer.load_state_dict(sd)
+        self._resume_schedule(leaves)
+
+    def _resume_schedule(self, leaves) -> None:
         count = int(np.asarray(leaves[0]))  # optax's schedule count equals it
         self.scheduler = LambdaLR(self.optimizer, self.scheduler.lr_lambdas[0],
                                   last_epoch=count - 1)
 
 
-def _dp_layout(mesh: Mesh):
-    """(dp indices this rank holds, dp size, its device) of a (dp, tp)
-    mesh. tp > 1 (Megatron TP) is not ported; a rank's dp indices must sit
-    on one device (several on one device act as one replica)."""
-    shape = mesh.shape
-    if shape.get("tp", 1) > 1:
-        raise NotImplementedError("tp > 1 is not yet ported: the port's training "
-                                  "step runs data parallel only (tp = 1)")
-    axis = batch_sharding(mesh)[0]
-    owners = mesh.axis_devices(axis)
-    mine = [i for i, (rank, _) in enumerate(owners) if rank == mesh.rank]
-    if not mine:
-        raise ValueError(f"rank {mesh.rank} holds no dp index of {mesh}")
-    devices = {owners[i][1] for i in mine}
-    if len(devices) != 1:
-        raise ValueError(f"rank {mesh.rank} holds dp indices {mine} on {devices}: "
-                         "a rank's dp indices must share one device")
-    if mine != list(range(mine[0], mine[0] + len(mine))):
-        raise ValueError(f"rank {mesh.rank} holds non-contiguous dp indices {mine}")
-    return mine, len(owners), devices.pop()
+def opt_state_shardings(mesh: Optional[Mesh], params: Dict, opt_state) -> List[PartitionSpec]:
+    """The ``PartitionSpec`` of each leaf of an ``optax.adamw`` state over
+    ``params`` (a JAX-layout tree; only its paths matter), as the JAX
+    package's ``opt_state_shardings`` gives them: Adam's ``mu`` and ``nu``
+    mirror the parameter tree and take each parameter's spec, the counts
+    replicate. Replicating the moments (twice the parameters' bytes) would
+    cancel TP's memory saving. ``opt_state`` is the list of leaves."""
+    paths = sorted(_flatten(params), key=lambda path: path.split("/"))
+    split_adam_leaves(opt_state, len(paths))
+    specs = [_spec_for_path(path) for path in paths]
+    return [()] + specs + specs + [()] * (len(opt_state) - 1 - 2 * len(paths))
+
+
+class TensorParallelTrainState(TrainState):
+    """A ``TrainState`` over a ``TensorParallelBert``: AdamW steps this
+    rank's shards, whose moments live with them. ``params`` and
+    ``opt_state_leaves`` gather the full tree and the full optax leaves,
+    a collective over the tp group: every tp rank calls them."""
+
+    @property
+    def num_leaves(self) -> int:
+        return len(self.model.shapes)
+
+    def params(self) -> Dict:
+        return self.model.gather(lambda p: p)
+
+    def opt_state_leaves(self) -> List[np.ndarray]:
+        state = self.optimizer.state
+        count = next((int(float(s["step"])) for s in state.values() if "step" in s), 0)
+        moments = []
+        for key in ("exp_avg", "exp_avg_sq"):
+            tree = _flatten(self.model.gather(
+                lambda p, key=key: state[p][key] if key in state.get(p, {})
+                else torch.zeros_like(p)))
+            moments.append([tree[path] for path in self.model.shapes])
+        return adam_leaves(count, *moments)
+
+    def load_opt_state(self, leaves) -> None:
+        """Split optax-layout leaves by ``opt_state_shardings``: each shard
+        takes its piece of every moment."""
+        paths = list(self.model.shapes)
+        specs = opt_state_shardings(None, _nest(self.model.shapes), leaves)
+        count, _, _ = split_adam_leaves(leaves, len(paths))
+        step = torch.tensor(float(count), dtype=torch.float32)
+        column = {path: j for j, path in enumerate(paths)}
+        n_tp = self.model.n_tp
+        state = {}
+        for i, (p, path, t) in enumerate(self.model.pieces()):
+            moments = []
+            for j in (1 + column[path], 1 + len(paths) + column[path]):
+                x = _piece(np.asarray(leaves[j], np.float32), split_dim(specs[j]), n_tp, t or 0)
+                moments.append(torch.from_numpy(np.array(x)).to(p.device))
+            state[i] = {"step": step.clone(), "exp_avg": moments[0], "exp_avg_sq": moments[1]}
+        sd = self.optimizer.state_dict()
+        sd["state"] = state
+        self.optimizer.load_state_dict(sd)
+        self._resume_schedule(leaves)
 
 
 def init_train_state(
@@ -236,21 +291,30 @@ def init_train_state(
     opt_state=None,
     device: Union[str, torch.device] = "cuda",
 ) -> TrainState:
-    """A ``TrainState`` on ``device`` (with a mesh: on this rank's dp
-    device). ``schedule`` (a callable t -> lr, or a float) replaces the
-    constant ``learning_rate``. ``params`` (a JAX-layout tree) and
-    ``opt_state`` (optax leaves) start from an existing state instead of a
-    seeded init: a warm start or resume must survive the dp path, whose
-    replicas all start from the same host values."""
-    dev = _dp_layout(mesh)[2] if mesh is not None else resolve_device(device)
+    """A ``TrainState`` on ``device``, or with a mesh on this rank's
+    device (``train_layout``): over a ``TensorParallelBert`` holding this
+    rank's tp shards where the mesh's tp > 1 (a
+    ``TensorParallelTrainState``). ``schedule`` (a callable t -> lr, or a
+    float) replaces the constant ``learning_rate``. ``params`` (a
+    JAX-layout tree) and ``opt_state`` (optax leaves) start from an
+    existing state instead of a seeded init: a warm start or resume must
+    survive the dp and tp paths, whose ranks all start from the same host
+    values. A dimension that tp splits but does not divide raises
+    ``ValueError``."""
+    layout = train_layout(mesh) if mesh is not None else None
     if params is None:
         params = init_params(arch, seed=seed)
-    with torch.device(dev):
-        model = SentenceBert(dataclasses.replace(arch, param_dtype=torch.float32))
-    model.load_state_dict(params_from_jax(params))
+    master = dataclasses.replace(arch, param_dtype=torch.float32)
+    if layout is not None and layout.n_tp > 1:
+        model, kind = TensorParallelBert(master, layout), TensorParallelTrainState
+        model.load_params(params)
+    else:
+        with torch.device(layout.device if layout is not None else resolve_device(device)):
+            model, kind = SentenceBert(master), TrainState
+        model.load_state_dict(params_from_jax(params))
     model.train()
     optimizer, scheduler = make_optimizer(model, learning_rate if schedule is None else schedule)
-    state = TrainState(model, optimizer, scheduler)
+    state = kind(model, optimizer, scheduler)
     if opt_state is not None:
         state.load_opt_state(opt_state)
     return state
@@ -350,14 +414,18 @@ def make_train_step(temperature: float = 0.05):
 
 
 def make_sharded_train_step(mesh: Mesh, temperature: float = 0.05):
-    """The data-parallel step over the mesh's dp axis. Every rank calls it
-    with the same whole batch (as every JAX process holds the global
-    arrays) and embeds only its dp rows; the loss runs over the whole
-    batch's embeddings (in-batch negatives stay global) and the gradient
-    shares are summed across ranks, so loss and update equal
-    ``make_train_step``'s over the whole batch. Raises for tp > 1."""
-    mine, n_dp, _ = _dp_layout(mesh)
-    group = mesh.group
+    """The step over a (dp, tp) mesh, for a state from
+    ``init_train_state(mesh=mesh)``. Every rank calls it with the same
+    whole batch (as every JAX process holds the global arrays) and embeds
+    only its dp rows, through its tp shards where tp > 1; the loss runs
+    over the whole batch's embeddings (in-batch negatives stay global),
+    and the gradient shares are summed over the dp group, so loss and
+    update equal ``make_train_step``'s over the whole batch.
+
+    The replicated parameters' gradients need no sum over tp: each tp rank
+    computes them from the same values (parallel/tensor_parallel.py)."""
+    layout = train_layout(mesh)
+    mine, n_dp, group = layout.dp_indices, layout.n_dp, layout.dp_group
     world = dist.get_world_size(group) if group is not None else 1
     rank = dist.get_rank(group) if group is not None else 0
 

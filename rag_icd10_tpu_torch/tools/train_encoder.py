@@ -32,8 +32,10 @@ Usage:
     export EMBEDDING_WEIGHTS_PATH=db/trained/params.npz
     python -m rag_icd10_tpu_torch.tools.build_database --rebuild
 
-Single-device by default; pass --dp to run data parallel over a mesh
-(parallel/train.py; tp > 1 is not ported).
+Single-device by default; --dp N --tp M runs over a (dp, tp) mesh
+(parallel/train.py): data parallel over dp, Megatron tensor parallel over
+tp (parallel/tensor_parallel.py). --tp alone builds no mesh, as in the
+JAX tool.
 """
 
 from __future__ import annotations
@@ -343,8 +345,11 @@ def main(argv=None, device: Union[str, torch.device] = "cuda") -> int:
         "process's devices, or every rank's once torch.distributed is "
         "initialized (parallel/multihost.initialize)",
     )
-    parser.add_argument("--tp", type=int, default=1,
-                        help="mesh tp; only 1 is ported")
+    parser.add_argument(
+        "--tp", type=int, default=1,
+        help="mesh tp, with --dp: Megatron tensor parallel over tp shards "
+        "(several on one device are logical shards)",
+    )
     parser.add_argument("--log-every", type=int, default=50)
     parser.add_argument("--save-every", type=int, default=2000,
                         help="checkpoint params every N steps (0 = end only)")
@@ -478,7 +483,7 @@ def main(argv=None, device: Union[str, torch.device] = "cuda") -> int:
         elif opt_path.exists():
             flat = np.load(str(opt_path))
             n_leaves = sum(1 for key in flat.files if key.startswith("leaf_"))
-            if n_leaves == 2 * len(list(state.model.parameters())) + 2:
+            if n_leaves == 2 * state.num_leaves + 2:
                 state.load_opt_state([flat[f"leaf_{i}"] for i in range(n_leaves)])
                 start_step = int(flat["__step__"]) if "__step__" in flat.files else 0
                 logger.info(
@@ -509,15 +514,19 @@ def main(argv=None, device: Union[str, torch.device] = "cuda") -> int:
     out.mkdir(parents=True, exist_ok=True)
 
     def save_checkpoint(state, step=None):
+        # under tp across ranks the gathers are collectives: every rank
+        # gathers, rank 0 writes
+        params = state.params()
+        leaves = state.opt_state_leaves() if step is not None else None
         if not writer:
             return
-        save_params(state.params(), str(out / "params.npz"))
+        save_params(params, str(out / "params.npz"))
         tok.save_vocab(str(out / "vocab.txt"))
         if step is not None:
             np.savez(
                 str(out / "opt_state.npz"),
                 __step__=np.int64(step),
-                **{f"leaf_{i}": v for i, v in enumerate(state.opt_state_leaves())},
+                **{f"leaf_{i}": v for i, v in enumerate(leaves)},
             )
         if (step is not None and args.keep_every
                 and step % args.keep_every == 0):

@@ -482,14 +482,6 @@ def test_partition_rules_match_jax():
     assert batch_sharding(None) == ("dp",) and replicated(None) == ()
 
 
-def test_tp_is_not_ported():
-    mesh = make_mesh(n_devices=2, dp=1, tp=2, devices=["cpu", "cpu"], distributed=False)
-    with pytest.raises(NotImplementedError, match="tp > 1 is not yet ported"):
-        ttrain.make_sharded_train_step(mesh)
-    with pytest.raises(NotImplementedError, match="tp > 1 is not yet ported"):
-        init_train_state(BertArch(**TINY), mesh=mesh)
-
-
 def test_sharded_step_in_one_process_equals_the_plain_step():
     """dp = 2 logical shards of one CPU: one replica takes both row blocks,
     so the step is the plain step, to the bit."""
