@@ -33,6 +33,9 @@ hard negatives and the served level weights folded into the logits.
 
 The forward and backward are plain PyTorch autograd: no Pallas kernel of
 the JAX package has a backward pass (XLA differentiates the model there).
+Both steps record the spans ``train.step.forward`` (to the device,
+embed, any dp gather, loss), ``train.step.backward`` (with any dp
+all-reduce) and ``train.step.update`` (AdamW) in utils/metrics.py.
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ from ..models.convert_hf import (
     split_adam_leaves,
 )
 from ..utils.device import resolve_device
+from ..utils.metrics import metrics
 from .mesh import Mesh, PartitionSpec, _spec_for_path, train_layout
 from .tensor_parallel import TensorParallelBert, _flatten, _nest, _piece, split_dim
 
@@ -403,11 +407,14 @@ def make_train_step(temperature: float = 0.05):
 
     def train_step(state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
         _check_batch(batch)
-        b = _to_device(batch, state.device)
-        za, zb, zh = _embed(state.model, b)
-        loss, acc = _loss(b, za, zb, zh, temperature)
-        loss.backward()
-        apply_update(state)
+        with metrics.span("train.step.forward"):
+            b = _to_device(batch, state.device)
+            za, zb, zh = _embed(state.model, b)
+            loss, acc = _loss(b, za, zb, zh, temperature)
+        with metrics.span("train.step.backward"):
+            loss.backward()
+        with metrics.span("train.step.update"):
+            apply_update(state)
         return {"loss": loss.detach(), "accuracy": acc}
 
     return train_step
@@ -436,22 +443,25 @@ def make_sharded_train_step(mesh: Mesh, temperature: float = 0.05):
             raise ValueError(f"batch of {n} rows does not split over dp={n_dp}")
         per = n // n_dp
         rows = slice(mine[0] * per, (mine[-1] + 1) * per)
-        local = _to_device(batch, state.device, rows)
-        za, zb, zh = _embed(state.model, local)
-        if group is not None:
-            za, zb = (_gather_rows(z, group, rank, world) for z in (za, zb))
-            zh = None if zh is None else _gather_rows(zh, group, rank, world)
-        loss, acc = _loss(local, za, zb, zh, temperature)
-        loss.backward()
-        if group is not None:
-            grads = [p.grad for p in state.model.parameters() if p.grad is not None]
-            flat = torch.cat([g.reshape(-1) for g in grads])
-            dist.all_reduce(flat, group=group)
-            offset = 0
-            for g in grads:
-                g.copy_(flat[offset:offset + g.numel()].view_as(g))
-                offset += g.numel()
-        apply_update(state)
+        with metrics.span("train.step.forward"):
+            local = _to_device(batch, state.device, rows)
+            za, zb, zh = _embed(state.model, local)
+            if group is not None:
+                za, zb = (_gather_rows(z, group, rank, world) for z in (za, zb))
+                zh = None if zh is None else _gather_rows(zh, group, rank, world)
+            loss, acc = _loss(local, za, zb, zh, temperature)
+        with metrics.span("train.step.backward"):
+            loss.backward()
+            if group is not None:
+                grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+                flat = torch.cat([g.reshape(-1) for g in grads])
+                dist.all_reduce(flat, group=group)
+                offset = 0
+                for g in grads:
+                    g.copy_(flat[offset:offset + g.numel()].view_as(g))
+                    offset += g.numel()
+        with metrics.span("train.step.update"):
+            apply_update(state)
         return {"loss": loss.detach(), "accuracy": acc}
 
     return train_step

@@ -36,6 +36,13 @@ Single-device by default; --dp N --tp M runs over a (dp, tp) mesh
 (parallel/train.py): data parallel over dp, Megatron tensor parallel over
 tp (parallel/tensor_parallel.py). --tp alone builds no mesh, as in the
 JAX tool.
+
+Each step records spans in the port's registry (utils/metrics.py), with
+the step number as their id: ``train.draw`` (in ``draw_batch``:
+``train.draw.sample``, ``train.draw.tokenize``) and ``train.step`` (in
+parallel/train.py: ``train.step.forward``, ``.backward``, ``.update``).
+The --log-every line prints the interval's mean draw, step and wait (the
+step's self time: the host blocked on the device) from them.
 """
 
 from __future__ import annotations
@@ -212,48 +219,72 @@ def draw_batch(
     """
     from ..data.augment import augment_train, wrap_uncertainty
     from ..parallel.train import make_triplet_batch
+    from ..utils.metrics import metrics
 
     texts_a, texts_b, texts_h = [], [], []
     ga, gb, gh = [], [], []
     w_b, w_h = [], []
-    for i in idx:
-        e = examples[i]
-        a = e.anchor
-        if e.augment and rng.random() < augment_prob:
-            v = augment_train(a, rng)
-            if v:
-                a = v
-        if rng.random() < marker_prob:
-            a = wrap_uncertainty(a, rng)
-        # hard negative ladder: ancestor (ancestor_frac) > cousin
-        # (cousin_frac) > sibling; missing pools fall through
-        pool = e.sib_titles
-        if (ancestor_frac > 0 and e.anc_titles
-                and rng.random() < ancestor_frac):
-            pool = e.anc_titles
-        elif (cousin_frac > 0 and e.cousin_titles
-                and (not pool or rng.random() < cousin_frac)):
-            pool = e.cousin_titles
-        if pool:
-            h = pool[int(rng.integers(0, len(pool)))]
-        else:
-            # random title; the loss masks it if it happens to collide
-            h = corpus_titles[int(rng.integers(0, len(corpus_titles)))]
-        texts_a.append(a)
-        texts_b.append(e.positive)
-        texts_h.append(h)
-        ga.append(e.ga)
-        gb.append(e.gb)
-        gh.append(title_ids.setdefault(h, len(title_ids)))
-        if title_weights is not None:
-            w_b.append(e.pos_weight)
-            w_h.append(title_weights.get(h, 1.0))
-    return make_triplet_batch(
-        tok, texts_a, texts_b, texts_h, ga, gb, gh,
-        seq_a=seq_a, seq_b=seq_b, pad_rows=len(idx),
-        w_b=w_b if title_weights is not None else None,
-        w_h=w_h if title_weights is not None else None,
-    )
+    with metrics.span("train.draw.sample"):
+        for i in idx:
+            e = examples[i]
+            a = e.anchor
+            if e.augment and rng.random() < augment_prob:
+                v = augment_train(a, rng)
+                if v:
+                    a = v
+            if rng.random() < marker_prob:
+                a = wrap_uncertainty(a, rng)
+            # hard negative ladder: ancestor (ancestor_frac) > cousin
+            # (cousin_frac) > sibling; missing pools fall through
+            pool = e.sib_titles
+            if (ancestor_frac > 0 and e.anc_titles
+                    and rng.random() < ancestor_frac):
+                pool = e.anc_titles
+            elif (cousin_frac > 0 and e.cousin_titles
+                    and (not pool or rng.random() < cousin_frac)):
+                pool = e.cousin_titles
+            if pool:
+                h = pool[int(rng.integers(0, len(pool)))]
+            else:
+                # random title; the loss masks it if it happens to collide
+                h = corpus_titles[int(rng.integers(0, len(corpus_titles)))]
+            texts_a.append(a)
+            texts_b.append(e.positive)
+            texts_h.append(h)
+            ga.append(e.ga)
+            gb.append(e.gb)
+            gh.append(title_ids.setdefault(h, len(title_ids)))
+            if title_weights is not None:
+                w_b.append(e.pos_weight)
+                w_h.append(title_weights.get(h, 1.0))
+    with metrics.span("train.draw.tokenize"):
+        return make_triplet_batch(
+            tok, texts_a, texts_b, texts_h, ga, gb, gh,
+            seq_a=seq_a, seq_b=seq_b, pad_rows=len(idx),
+            w_b=w_b if title_weights is not None else None,
+            w_h=w_h if title_weights is not None else None,
+        )
+
+
+STEP_PHASES = ("train.step.forward", "train.step.backward", "train.step.update")
+
+
+def interval_split_ms(registry, since_ns: int) -> Tuple[float, float, float]:
+    """Mean ``train.draw``, ``train.step`` and step self time (the host
+    blocked on the device, plus the loop's own Python) in ms, over the
+    steps whose spans start at or after ``since_ns``; nan where the
+    registry holds none."""
+    from ..utils.metrics import self_ns
+
+    def mean(xs):
+        return float(np.mean(xs)) / 1e6 if xs else float("nan")
+
+    draws = registry.spans("train.draw", since_ns) or []
+    steps = registry.spans("train.step", since_ns) or []
+    kids = [c for name in STEP_PHASES for c in registry.spans(name, since_ns) or []]
+    return (mean([s.end_ns - s.start_ns for s in draws]),
+            mean([s.end_ns - s.start_ns for s in steps]),
+            mean([self_ns(s, kids) for s in steps]))
 
 
 def select_vocab(explicit_vocab, init_from, build_fresh):
@@ -398,6 +429,7 @@ def main(argv=None, device: Union[str, torch.device] = "cuda") -> int:
         warmup_cosine_decay_schedule,
     )
     from ..utils.device_guard import acquire_device
+    from ..utils.metrics import metrics
 
     dev = acquire_device(device, what="encoder training")
     cfg = get_config()
@@ -549,6 +581,7 @@ def main(argv=None, device: Union[str, torch.device] = "cuda") -> int:
             order = rng.permutation(n_examples)
             cursor = args.batch - tail
     t0 = time.time()
+    t_log = time.time_ns()
     losses = []
     for step in range(start_step, args.steps):
         # epoch-clean cursor: consume the tail of the old permutation and
@@ -561,30 +594,35 @@ def main(argv=None, device: Union[str, torch.device] = "cuda") -> int:
             order = rng.permutation(n_examples)
             cursor = args.batch - len(tail)
             idx = np.concatenate([tail, order[:cursor]])
-        if args.plain_pairs:
-            batch_pairs = [pairs[i] for i in idx]
-            batch = make_pair_batch(
-                tok,
-                [a for a, _ in batch_pairs],
-                [b for _, b in batch_pairs],
-                max_length=args.seq_b,
-                pad_rows=args.batch,
-            )
-        else:
-            batch = draw_batch(
-                examples, idx, corpus.titles, title_ids, rng, tok,
-                args.seq_a, args.seq_b, args.augment_prob,
-                args.marker_prob, args.cousin_frac,
-                args.ancestor_frac, title_weights,
-            )
-        m = run_step(state, batch)
-        losses.append(float(m["loss"]))
+        with metrics.span("train.draw", id=step):
+            if args.plain_pairs:
+                batch_pairs = [pairs[i] for i in idx]
+                batch = make_pair_batch(
+                    tok,
+                    [a for a, _ in batch_pairs],
+                    [b for _, b in batch_pairs],
+                    max_length=args.seq_b,
+                    pad_rows=args.batch,
+                )
+            else:
+                batch = draw_batch(
+                    examples, idx, corpus.titles, title_ids, rng, tok,
+                    args.seq_a, args.seq_b, args.augment_prob,
+                    args.marker_prob, args.cousin_frac,
+                    args.ancestor_frac, title_weights,
+                )
+        with metrics.span("train.step", id=step):
+            m = run_step(state, batch)
+            losses.append(float(m["loss"]))
         if (step + 1) % args.log_every == 0 or step == start_step:
             rate = (step + 1 - start_step) / (time.time() - t0)
+            draw_ms, step_ms, wait_ms = interval_split_ms(metrics, t_log)
+            t_log = time.time_ns()
             logger.info(
-                "step %d/%d loss=%.4f acc=%.3f (%.2f steps/s)",
+                "step %d/%d loss=%.4f acc=%.3f (%.2f steps/s; draw %.1f ms, "
+                "step %.1f ms, wait %.1f ms)",
                 step + 1, args.steps, float(m["loss"]),
-                float(m["accuracy"]), rate,
+                float(m["accuracy"]), rate, draw_ms, step_ms, wait_ms,
             )
         if args.save_every and (step + 1) % args.save_every == 0:
             save_checkpoint(state, step + 1)

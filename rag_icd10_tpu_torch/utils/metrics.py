@@ -1,12 +1,17 @@
-"""Per-stage latency metrics + torch profiler hooks.
+"""Spans of the program's stages + torch profiler hooks.
 
 The reference's observability is log-lines only (SURVEY.md §5: loguru
 sinks, no tracer). Here every pipeline stage (extract/encode/search/
-rescore/confidence) records wall-clock into a bounded ring buffer, and
-/stats surfaces counts + p50/p95/mean per stage. torch.profiler traces
-can be started/stopped at runtime for deep dives (Chrome trace JSON,
-viewable in Perfetto), and the stop result carries the CUDA allocator's
-memory statistics.
+rescore/confidence) and every phase of the encoder-training loop records
+a span: its name, start and end in ``time.time_ns()`` (the clock a device
+trace can be aligned to), the innermost span open on the same thread when
+it started (its parent) and an id it shares with that parent. Spans are
+kept in a bounded ring per name; /stats surfaces counts + p50/p95/mean
+per name. torch.profiler traces can be started/stopped at runtime for
+deep dives (Chrome trace JSON, viewable in Perfetto): while one runs,
+each span is also a ``record_function`` range of its name, so the trace
+shows the stages above the kernels. The stop result carries the CUDA
+allocator's memory statistics.
 """
 
 from __future__ import annotations
@@ -14,41 +19,116 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
-from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch
+from torch.autograd import _profiler_enabled
+from torch.autograd.profiler import record_function
+
+
+class Span(NamedTuple):
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: Optional[str]  # the innermost span open on this thread at the start
+    id: Optional[int]  # the top-level span's, given by its caller
+
+
+class _Open:
+    """One span while it is open: a context manager."""
+
+    __slots__ = ("reg", "name", "id", "parent", "start", "rf", "stack")
+
+    def __init__(self, reg: "StageMetrics", name: str, id: Optional[int]):
+        self.reg, self.name, self.id = reg, name, id
+        self.parent = self.rf = None
+
+    def __enter__(self) -> "_Open":
+        try:
+            stack = self.stack = self.reg._local.stack
+        except AttributeError:
+            stack = self.stack = self.reg._local.stack = []
+        if stack:
+            top = stack[-1]
+            self.parent, self.id = top.name, top.id
+        stack.append(self)
+        if _profiler_enabled():
+            self.rf = record_function(self.name)
+            self.rf.__enter__()
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        end = time.time_ns()
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+            self.rf = None
+        self.stack.pop()
+        # tuple.__new__ skips NamedTuple's __new__, a Python call: a large share of a span
+        self.reg._add(tuple.__new__(Span, (self.name, self.start, end, self.parent, self.id)))
+        return False
 
 
 class StageMetrics:
-    """Thread-safe ring-buffer latency recorder."""
+    """Thread-safe span registry: a ring of the last ``window`` spans per
+    name, with the count recorded and the count dropped from the ring."""
 
     def __init__(self, window: int = 512):
         self.window = window
         self._lock = threading.Lock()
-        self._samples: Dict[str, deque] = {}
+        self._local = threading.local()
+        self._spans: Dict[str, deque] = {}
         self._counts: Dict[str, int] = {}
+        self._dropped: Dict[str, Tuple[int, int]] = {}  # name -> (count, newest's end)
 
-    @contextmanager
-    def timer(self, stage: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.record(stage, time.perf_counter() - t0)
+    def span(self, name: str, id: Optional[int] = None) -> _Open:
+        """A span of ``name`` around a ``with`` block. A span opened inside
+        another on the same thread takes that one as its parent and its
+        id; a top-level span takes ``id``."""
+        return _Open(self, name, id)
 
-    def record(self, stage: str, seconds: float) -> None:
+    timer = span  # the serving stages' name for it
+
+    def _add(self, span: Span) -> None:
+        name = span.name
         with self._lock:
-            buf = self._samples.setdefault(stage, deque(maxlen=self.window))
-            buf.append(seconds)
-            self._counts[stage] = self._counts.get(stage, 0) + 1
+            ring = self._spans.get(name)
+            if ring is None:
+                ring = self._spans[name] = deque(maxlen=self.window)
+            elif len(ring) == self.window:
+                n, _ = self._dropped.get(name, (0, 0))
+                self._dropped[name] = (n + 1, ring[0].end_ns)
+            ring.append(span)
+            self._counts[name] = self._counts.get(name, 0) + 1
+
+    def spans(self, name: str, since_ns: int = 0,
+              until_ns: Optional[int] = None) -> Optional[List[Span]]:
+        """The spans of ``name`` held in the ring that start in [since_ns,
+        until_ns], by start; None where the ring has dropped one that
+        ended after ``since_ns`` (it may have started in the interval)."""
+        with self._lock:
+            held = list(self._spans.get(name, ()))
+            lost = self._dropped.get(name)
+        if lost is not None and lost[1] > since_ns:
+            return None
+        out = [s for s in held
+               if s.start_ns >= since_ns and (until_ns is None or s.start_ns <= until_ns)]
+        out.sort(key=lambda s: s.start_ns)
+        return out
+
+    def dropped(self, name: str) -> int:
+        """Spans of ``name`` dropped from the full ring so far."""
+        with self._lock:
+            return self._dropped.get(name, (0, 0))[0]
 
     def snapshot(self) -> Dict[str, Dict[str, float]]:
         with self._lock:
             out = {}
-            for stage, buf in self._samples.items():
-                arr = np.asarray(buf, dtype=np.float64) * 1000  # ms
+            for stage, buf in self._spans.items():
+                arr = np.fromiter((s.end_ns - s.start_ns for s in buf), np.float64,
+                                  len(buf)) / 1e6  # ms
                 out[stage] = {
                     "count": self._counts[stage],
                     "p50_ms": round(float(np.percentile(arr, 50)), 3),
@@ -60,8 +140,20 @@ class StageMetrics:
 
     def reset(self) -> None:
         with self._lock:
-            self._samples.clear()
+            self._spans.clear()
             self._counts.clear()
+            self._dropped.clear()
+
+
+def self_ns(span: Span, children: Iterable[Span]) -> int:
+    """``span``'s length less the part of it its children (spans with it
+    as their parent and its id) cover; children on one thread do not
+    overlap."""
+    covered = sum(min(c.end_ns, span.end_ns) - max(c.start_ns, span.start_ns)
+                  for c in children
+                  if c.parent == span.name and c.id == span.id
+                  and c.start_ns < span.end_ns and c.end_ns > span.start_ns)
+    return span.end_ns - span.start_ns - covered
 
 
 # process-wide default registry
@@ -76,8 +168,6 @@ class Profiler:
         self._prof = None
 
     def start(self) -> Dict:
-        import torch
-
         if self._prof is not None:
             return {"status": "already_running", "log_dir": self.log_dir}
         activities = [torch.profiler.ProfilerActivity.CPU]
@@ -89,8 +179,6 @@ class Profiler:
         return {"status": "started", "log_dir": self.log_dir}
 
     def stop(self) -> Dict:
-        import torch
-
         if self._prof is None:
             return {"status": "not_running"}
         prof, self._prof = self._prof, None
