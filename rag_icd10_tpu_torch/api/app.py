@@ -489,6 +489,9 @@ class APIServer:
             if fused is not None:  # FUSED_QUERY=1: graphs, replays, redos
                 stats["fused_query"] = fused.stats()
             stats["stage_latency"] = metrics.snapshot()
+            tok = getattr(self.engine.encoder, "tokenizer", None)
+            if tok is not None:  # the query tokenizer's piece memo
+                stats["tokenizer_memo"] = tok.memo_stats()
             stats["profiler_active"] = profiler.active
             stats["uptime_s"] = round(time.time() - self.engine.started_at, 1)
             return json_response(stats)

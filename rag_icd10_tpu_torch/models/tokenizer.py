@@ -16,18 +16,45 @@ scratch so the framework is self-contained:
 
 Output is fixed-shape numpy (ids, attention_mask, token_type_ids) bucketed
 to static lengths: XLA-friendly, no dynamic shapes.
+
+``encode``/``encode_batch`` split each text once into the pieces
+``basic_tokenize`` keeps apart and look each piece's ids up in a bounded
+per-instance memo; a miss runs ``basic_tokenize`` + ``wordpiece`` on the
+piece. Chinese text is nearly all single CJK characters, so after a few
+batches almost every lookup hits (``memo_stats``).
 """
 
 from __future__ import annotations
 
+import re
+import threading
 import unicodedata
+from itertools import accumulate
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 PAD, UNK, CLS, SEP, MASK = "[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"
 SPECIALS = (PAD, UNK, CLS, SEP, MASK)
+
+
+# The ranges of ``_is_cjk`` as a regex class.
+_CJK_CLASS = (
+    "\u4e00-\u9fff\u3400-\u4dbf\U00020000-\U0002a6df\U0002a700-\U0002b73f"
+    "\U0002b740-\U0002b81f\U0002b820-\U0002ceaf\uf900-\ufaff\U0002f800-\U0002fa1f"
+)
+# The characters ``basic_tokenize`` splits words on: whitespace that
+# ``_is_control`` keeps. \x0b \x0c \x1c-\x1f \x85 are whitespace too, but
+# dropped as controls, so they join the characters around them.
+_SEPARATORS = "\t\n\r \xa0\u1680\u2000-\u200a\u2028\u2029\u202f\u205f\u3000"
+# A piece: one CJK character, or a maximal run of anything but CJK and
+# separators. basic_tokenize(text) == sum(basic_tokenize(p) for p in pieces).
+_PIECE = re.compile(f"[{_CJK_CLASS}]|[^{_CJK_CLASS}{_SEPARATORS}]+")
+_CJK_TEXT = re.compile(f"[{_CJK_CLASS}]*")
+
+# Pieces a tokenizer remembers; past it, misses are computed and not stored.
+MEMO_MAX_PIECES = 1 << 17
 
 
 def _is_cjk(cp: int) -> bool:
@@ -103,6 +130,11 @@ class WordPieceTokenizer:
         self.unk_id = vocab[UNK]
         self.cls_id = vocab[CLS]
         self.sep_id = vocab[SEP]
+        # piece -> its token ids, a tuple that is never handed out
+        self._memo: Dict[str, Tuple[int, ...]] = {}
+        self._lock = threading.Lock()
+        self._hits = 0
+        self._misses = 0
 
     # ------------------------------------------------------------- vocab
 
@@ -182,9 +214,64 @@ class WordPieceTokenizer:
 
     def encode(self, text: str, max_length: int = 512) -> List[int]:
         """[CLS] tokens [SEP], truncated to max_length."""
-        ids = [self.vocab.get(t, self.unk_id) for t in self.tokenize(text)]
-        ids = ids[: max_length - 2]
-        return [self.cls_id] + ids + [self.sep_id]
+        return self._encode_flat((text,), max_length)[0]
+
+    def _encode_flat(
+        self, texts: Iterable[str], max_length: int
+    ) -> Tuple[List[int], List[int]]:
+        """``encode`` of each text: the rows end to end in one list, and
+        each row's length."""
+        get = self._memo.get
+        cut = max_length - 2  # each row's tokens are cut as tokens[:cut]
+        flat: List[int] = []
+        lens: List[int] = []
+        looked = misses = 0
+        for text in texts:
+            # a text of CJK characters alone is its own list of pieces
+            pieces = text if _CJK_TEXT.fullmatch(text) else _PIECE.findall(text)
+            looked += len(pieces)
+            start = len(flat)
+            flat.append(self.cls_id)
+            for piece in pieces:
+                ids = get(piece)
+                if ids is None:
+                    ids = self._remember(piece)
+                    misses += 1
+                flat += ids
+            n_tokens = len(flat) - start - 1
+            del flat[start + 1 + (cut if cut >= 0 else max(n_tokens + cut, 0)):]
+            flat.append(self.sep_id)
+            lens.append(len(flat) - start)
+        with self._lock:
+            self._hits += looked - misses
+            self._misses += misses
+        return flat, lens
+
+    def _remember(self, piece: str) -> Tuple[int, ...]:
+        """A missed piece's ids, stored while the memo has room."""
+        ids = tuple(
+            self.vocab.get(t, self.unk_id)
+            for tok in basic_tokenize(piece)
+            for t in self.wordpiece(tok)
+        )
+        with self._lock:
+            if len(self._memo) < MEMO_MAX_PIECES:
+                self._memo[piece] = ids
+        return ids
+
+    def memo_stats(self) -> Dict[str, Any]:
+        """Piece lookups that hit and missed the memo, the share that hit
+        (None before the first), and the memo's size."""
+        with self._lock:
+            hits, misses, size = self._hits, self._misses, len(self._memo)
+        looked = hits + misses
+        return {
+            "hits": hits,
+            "misses": misses,
+            "hit_share": hits / looked if looked else None,
+            "pieces": size,
+            "capacity": MEMO_MAX_PIECES,
+        }
 
     # ------------------------------------------------------------- batch
 
@@ -201,20 +288,23 @@ class WordPieceTokenizer:
         by max_length); batch optionally padded to ``pad_batch_to`` rows so
         jit sees a bounded set of shapes.
         """
-        encoded = [self.encode(t, max_length) for t in texts]
-        longest = max((len(e) for e in encoded), default=1)
+        flat, lens = self._encode_flat(texts, max_length)
+        longest = max(lens, default=1)
         if buckets:
             usable = [b for b in buckets if b >= longest and b <= max_length]
             seq_len = min(usable) if usable else max_length
         else:
             seq_len = max_length
-        n = len(encoded)
+        n = len(lens)
         rows = pad_batch_to if pad_batch_to and pad_batch_to >= n else n
         ids = np.full((rows, seq_len), self.pad_id, dtype=np.int32)
         mask = np.zeros((rows, seq_len), dtype=np.int32)
-        for i, e in enumerate(encoded):
-            e = e[:seq_len]
-            ids[i, : len(e)] = e
-            mask[i, : len(e)] = 1
+        if longest > seq_len:  # max_length under 2: rows cut at seq_len
+            starts = list(accumulate(lens, initial=0))
+            flat = [i for s, k in zip(starts, lens) for i in flat[s : s + min(k, seq_len)]]
+            lens = [min(k, seq_len) for k in lens]
+        filled = np.arange(seq_len) < np.array(lens, np.intp)[:, None]
+        ids[:n][filled] = flat  # a boolean assignment fills row-major
+        mask[:n] = filled
         type_ids = np.zeros_like(ids)
         return ids, mask, type_ids

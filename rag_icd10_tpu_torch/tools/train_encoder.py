@@ -42,7 +42,8 @@ the step number as their id: ``train.draw`` (in ``draw_batch``:
 ``train.draw.sample``, ``train.draw.tokenize``) and ``train.step`` (in
 parallel/train.py: ``train.step.forward``, ``.backward``, ``.update``).
 The --log-every line prints the interval's mean draw, step and wait (the
-step's self time: the host blocked on the device) from them.
+step's self time: the host blocked on the device) from them, and the share
+of the tokenizer's piece lookups that hit its memo over the interval.
 """
 
 from __future__ import annotations
@@ -285,6 +286,14 @@ def interval_split_ms(registry, since_ns: int) -> Tuple[float, float, float]:
     return (mean([s.end_ns - s.start_ns for s in draws]),
             mean([s.end_ns - s.start_ns for s in steps]),
             mean([self_ns(s, kids) for s in steps]))
+
+
+def memo_hit_pct(before: Dict[str, int], after: Dict[str, int]) -> float:
+    """Percent of the tokenizer's piece lookups between two ``memo_stats``
+    that hit its memo; nan where there were none."""
+    hits = after["hits"] - before["hits"]
+    looked = hits + after["misses"] - before["misses"]
+    return 100.0 * hits / looked if looked else float("nan")
 
 
 def select_vocab(explicit_vocab, init_from, build_fresh):
@@ -582,6 +591,7 @@ def main(argv=None, device: Union[str, torch.device] = "cuda") -> int:
             cursor = args.batch - tail
     t0 = time.time()
     t_log = time.time_ns()
+    memo_log = tok.memo_stats()
     losses = []
     for step in range(start_step, args.steps):
         # epoch-clean cursor: consume the tail of the old permutation and
@@ -618,12 +628,15 @@ def main(argv=None, device: Union[str, torch.device] = "cuda") -> int:
             rate = (step + 1 - start_step) / (time.time() - t0)
             draw_ms, step_ms, wait_ms = interval_split_ms(metrics, t_log)
             t_log = time.time_ns()
+            memo = tok.memo_stats()
             logger.info(
                 "step %d/%d loss=%.4f acc=%.3f (%.2f steps/s; draw %.1f ms, "
-                "step %.1f ms, wait %.1f ms)",
+                "step %.1f ms, wait %.1f ms; piece memo %.1f%% hits)",
                 step + 1, args.steps, float(m["loss"]),
                 float(m["accuracy"]), rate, draw_ms, step_ms, wait_ms,
+                memo_hit_pct(memo_log, memo),
             )
+            memo_log = memo
         if args.save_every and (step + 1) % args.save_every == 0:
             save_checkpoint(state, step + 1)
             logger.info("checkpoint saved at step %d -> %s", step + 1, out)

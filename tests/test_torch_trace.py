@@ -177,14 +177,16 @@ def test_cli_records_one_span_of_each_phase_a_step(tiny_cli, caplog):
             assert _inside(phase, whole)
         assert forward.end_ns <= backward.start_ns and backward.end_ns <= update.start_ns
         assert draw.end_ns <= whole.start_ns
-    # the operator's line: draw, step and the step's self time of the interval
+    # the operator's line: draw, step and the step's self time of the
+    # interval, then the share of the tokenizer's piece lookups that hit
     lines = [r for r in caplog.records if str(r.msg).startswith("step %d/%d loss=")]
     assert len(lines) == 3
     for r in lines:
-        draw_ms, step_ms, wait_ms = r.args[-3:]
+        draw_ms, step_ms, wait_ms, hit_pct = r.args[-4:]
         assert all(math.isfinite(x) for x in (draw_ms, step_ms, wait_ms))
         assert 0 < wait_ms < step_ms
-    assert "wait" in lines[-1].getMessage()
+        assert 0 <= hit_pct <= 100
+    assert "wait" in lines[-1].getMessage() and "piece memo" in lines[-1].getMessage()
 
 
 def test_cli_plain_pairs_records_the_draw_and_the_step(tiny_cli):
