@@ -7,8 +7,11 @@ Run one cell from the repository root::
 
 ``BENCHMARK.json`` at the repository root names the cells; everything one
 configuration, traffic mix or per-layer metric needs sits in a file of its
-own under ``configs/``, ``traffic/``, ``metrics/`` (with its reader under
-``readers/``) and ``limits/``, found by the name in ``BENCHMARK.json``.
+own under ``configs/`` (with the source's values under ``published/``),
+``traffic/``, ``metrics/`` (with its reader under ``readers/``) and
+``limits/``, found by the name in ``BENCHMARK.json``; what is specific to a
+model sits in ``families/<model_type>.py``, found by the configuration's
+``model_type``.
 ``reference/`` holds the plain PyTorch reference that decides ``correct``;
 it imports nothing of the program. Nothing here imports JAX or the JAX
 package ``rag_icd10_tpu``.

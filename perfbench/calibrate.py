@@ -32,12 +32,11 @@ def _free(device):
 
 def train_seed(cell, seed, seconds, device):
     from .drivers import train
-    from .gen.weights import port_name
     from .reference.lowp import fp8
 
     cfg = cell.config
     tr, inp, _ = train.train_window(cell, seed, seconds, False, device)
-    w0 = inp["w0"]
+    w0, port_name = inp["w0"], tr.port_name
     faults, batches, _ = train.rebuild(cell, tr, inp["corpus"])
     ref = train.reference_runs(cfg, tr, w0, batches, device)
     _free(device)
@@ -54,9 +53,9 @@ def train_seed(cell, seed, seconds, device):
 
     def read(p):
         start = train.compare(p["start"]["losses"], p["start"]["grad0"], p["start"]["change"],
-                              ref["start"], w0)
+                              ref["start"], w0, port_name)
         window = train.compare(p["window"]["losses"], p["window"]["grad0"],
-                               p["window"]["change"], ref["window"], w0)
+                               p["window"]["change"], ref["window"], w0, port_name)
         return dict(start, **{f"window_{k}": v for k, v in window.items()})
 
     out = {"seed": seed, "draw_faults": faults, "snap_step": tr.snap_step,

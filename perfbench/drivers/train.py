@@ -1,8 +1,8 @@
 """Training cell: ``tools/train_encoder.py``'s own ``main`` and loop.
 
 The benchmark writes the job's inputs from the seed (the corpus as a CSV
-for ``ICD_DATA_PATH``, starting weights as ``params.npz`` with
-``vocab.txt`` beside it for ``--init-from ... --params-only``), replaces
+for ``ICD_DATA_PATH``, ``vocab.txt``, and the starting weights as the
+configuration's family hands them over beside it), replaces
 ``parallel.train.make_train_step`` and ``train_encoder.draw_batch`` with
 wrappers that record spans and count steps, and calls ``main``. The first
 ``warm_steps`` steps are set-up; the window opens when the next batch's
@@ -27,6 +27,11 @@ Each compares every step's loss, each leaf's gradient of the first step
 over the steps. Every drawn batch is held to what the seeded table says
 it should hold (``reference/draw.py``); the reference trains on the
 batches rebuilt there, and the FLOPs are counted from their tokens.
+
+What is specific to the model (its starting leaves, the hand-over to the
+program, the map from a reference leaf to the program's parameter, the
+reference's loss of a batch and a step's FLOPs) comes from the family
+module of the configuration's ``model_type`` (``families/``).
 """
 
 from __future__ import annotations
@@ -36,22 +41,23 @@ import os
 import shutil
 import tempfile
 import time
+from functools import partial
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import families
 from ..bench import Outcome
 from ..gen.corpus import make_corpus, vocabulary
-from ..gen.weights import jax_layout, make_weights, port_name, save_npz, to_host
 from ..hooks import Hooks
 from ..profiling import DeviceProfile
 from ..reference.bert import no_tf32
 from ..reference.draw import DrawCheck
 from ..reference.tokenizer import Tokenizer
 from ..reference.train import run_steps
-from ..roofline import H100_SXM, train_step_flops
+from ..roofline import H100_SXM
 
 
 class WindowClosed(Exception):
@@ -63,9 +69,11 @@ def _flat(tensors) -> torch.Tensor:
 
 
 class Tracker:
-    def __init__(self, warm: int, compare: int, seconds: float, profile_steps: int):
+    def __init__(self, warm: int, compare: int, seconds: float, profile_steps: int,
+                 port_name: Callable[[str], Tuple[str, bool]]):
         self.warm, self.compare, self.seconds = warm, compare, seconds
         self.profile_steps = profile_steps
+        self.port_name = port_name  # the family's: reference leaf -> (program name, transposed)
         self.losses: List[float] = []
         self.batches: List[Dict] = []
         self.start: Dict[str, Dict[str, float]] = {}  # grad0, change of the warm steps
@@ -98,7 +106,7 @@ def _install(hooks: Hooks, tr: Tracker, w0: Dict[str, np.ndarray], trace: bool, 
     from rag_icd10_tpu_torch.parallel import train as ptrain
     from rag_icd10_tpu_torch.tools import train_encoder
 
-    names = {port_name(k)[0]: (k, port_name(k)[1]) for k in w0}
+    names = {tr.port_name(k)[0]: (k, tr.port_name(k)[1]) for k in w0}
 
     def make_step(orig_make):
         def patched(*a, **kw):
@@ -173,27 +181,26 @@ def _install(hooks: Hooks, tr: Tracker, w0: Dict[str, np.ndarray], trace: bool, 
     hooks.wrap(train_encoder, "draw_batch", draw)
 
 
-def job_argv(cell, init: Path, out: Path, seed: int) -> List[str]:
+def job_argv(cell, hand_over: List[str], out: Path, seed: int) -> List[str]:
     """The job's command line: the traffic's loop, the configuration's
-    recipe, the benchmark's files."""
+    recipe, the family's hand-over of the starting weights, the
+    benchmark's files."""
     t = cell.config["train"]
     return list(cell.traffic["argv"]) + [
         "--seq-a", str(t["seq_a"]), "--seq-b", str(t["seq_b"]), "--lr", str(t["peak_lr"]),
         "--augment-prob", str(t["augment_prob"]), "--marker-prob", str(t["marker_prob"]),
         "--cousin-frac", str(t["cousin_frac"]), "--ancestor-frac", str(t["ancestor_frac"]),
-        "--init-from", str(init / "params.npz"), "--params-only", "--out", str(out),
-        "--seed", str(abs(seed))]
+        *hand_over, "--out", str(out), "--seed", str(abs(seed))]
 
 
 def train_window(cell, seed: int, seconds: float, trace: bool, device="cuda", plant=None):
     """Set up, run the tool's loop through the window. Returns
     (tracker, inputs dict, memory peak)."""
-    import dataclasses
-
     from rag_icd10_tpu_torch import config as pconfig
     from rag_icd10_tpu_torch.tools import train_encoder
 
     cfg, traffic = cell.config, cell.traffic
+    family = families.of(cfg)
     tmp = Path(tempfile.mkdtemp(prefix="perfbench-"))
     hooks = Hooks()
     orig_get_config = pconfig.get_config
@@ -205,24 +212,19 @@ def train_window(cell, seed: int, seconds: float, trace: bool, device="cuda", pl
         init = tmp / "init"
         init.mkdir()
         (init / "vocab.txt").write_text("\n".join(vocabulary()), encoding="utf-8")
-        w0 = to_host(make_weights(cfg, seed, device))
-        save_npz(jax_layout(w0, cfg), str(init / "params.npz"))
+        w0 = family.start_leaves(cfg, seed, device)
+        hand_over = family.hand_over(cfg, w0, init)
         for k in ("EMBEDDING_VOCAB_PATH", "EMBEDDING_WEIGHTS_PATH"):
             os.environ.pop(k, None)
         os.environ["ICD_DATA_PATH"] = str(csv)
         pc = orig_get_config()
-        enc = dataclasses.replace(
-            pc.encoder, hidden_size=cfg["hidden_size"], num_layers=cfg["num_hidden_layers"],
-            num_heads=cfg["num_attention_heads"], intermediate_size=cfg["intermediate_size"],
-            vocab_size=cfg["vocab_size"], max_position_embeddings=cfg["max_position_embeddings"],
-            type_vocab_size=cfg["type_vocab_size"], layer_norm_eps=cfg["layer_norm_eps"])
-        if enc != pc.encoder:  # a narrowed configuration (the harness's own tests)
-            pconfig.get_config = lambda: dataclasses.replace(orig_get_config(), encoder=enc)
+        if family.program_config(cfg, pc) != pc:  # a narrowed configuration (the harness's tests)
+            pconfig.get_config = lambda: family.program_config(cfg, orig_get_config())
         tr = Tracker(int(cfg["train"]["warm_steps"]), int(cfg["train"]["compare_steps"]),
-                     seconds, int(traffic["profile_steps"]))
+                     seconds, int(traffic["profile_steps"]), family.port_name)
         _install(hooks, tr, w0, trace, plant)
         try:
-            train_encoder.main(job_argv(cell, init, tmp / "out", seed), device=device)
+            train_encoder.main(job_argv(cell, hand_over, tmp / "out", seed), device=device)
         except WindowClosed:
             pass
         if tr.prof is not None and tr.prof.t1 == 0:
@@ -252,7 +254,8 @@ def rebuild(cell, tr: Tracker, corpus):
     return faults, [r for r, _ in rebuilt], [c for _, c in rebuilt]
 
 
-def compare(prog_losses, prog_grad0, prog_change, ref, w0_names) -> Dict[str, float]:
+def compare(prog_losses, prog_grad0, prog_change, ref, w0_names,
+            port_name: Callable[[str], Tuple[str, bool]]) -> Dict[str, float]:
     """Widest gaps of the program's numbers against the reference's; the
     gradients and changes by leaf, each against the larger of the leaf's
     own reference norm and the median leaf's."""
@@ -282,7 +285,7 @@ def snapshot_leaves(tr: Tracker, w0_names, key: str) -> Dict[str, torch.Tensor]:
     by_port = {n: x.view(s) for n, x, s in zip(tr.names, parts, tr.shapes)}
     out = {}
     for k in w0_names:
-        n, transposed = port_name(k)
+        n, transposed = tr.port_name(k)
         out[k] = by_port[n].T.contiguous() if transposed else by_port[n].clone()
     return out
 
@@ -299,8 +302,8 @@ def reference_runs(cfg, tr: Tracker, w0, batches, device, rnd=None, half=False):
     """The reference over the start's and the window's compared steps
     (``rnd``: the control; ``half``: half of each batch, a planted fault)."""
     no_tf32()
-    t = cfg["train"]
-    heads, k = cfg["num_attention_heads"], tr.compare
+    t, k = cfg["train"], tr.compare
+    loss = partial(families.of(cfg).loss, cfg)
 
     def use(bs):
         if not half:
@@ -309,7 +312,7 @@ def reference_runs(cfg, tr: Tracker, w0, batches, device, rnd=None, half=False):
                 for b in bs]
 
     def steps(w, bs, moments=None, start=0):
-        return run_steps(w, use(bs), heads, t["peak_lr"], t["warmup_steps"], t["decay_steps"],
+        return run_steps(w, use(bs), loss, t["peak_lr"], t["warmup_steps"], t["decay_steps"],
                          t["weight_decay"], rnd=rnd, moments=moments, start=start)
 
     out = {"start": steps({key: torch.from_numpy(v).to(device) for key, v in w0.items()},
@@ -326,8 +329,8 @@ def reference_runs(cfg, tr: Tracker, w0, batches, device, rnd=None, half=False):
 def numbers(tr: Tracker, w0, ref) -> Dict[str, float]:
     out = {}
     start = compare(tr.losses[:tr.warm], tr.start.get("grad0", {}),
-                    tr.start.get("change", {}), ref["start"], w0)
-    window = compare(*program_window(tr), ref["window"], w0)
+                    tr.start.get("change", {}), ref["start"], w0, tr.port_name)
+    window = compare(*program_window(tr), ref["window"], w0, tr.port_name)
     out.update(start)
     out.update({f"window_{k}": v for k, v in window.items()})
     return out
@@ -342,7 +345,8 @@ def run(cell, seed: int, seconds: float, trace: bool, t_start_ns: int, device="c
     t_check = time.time()
     faults, batches, counts = rebuild(cell, tr, inp["corpus"])
     t_rebuilt = time.time()
-    flops = sum(train_step_flops(*c, cfg) for c in counts[warm:warm + tr.window_steps])
+    step_flops = families.of(cfg).step_flops
+    flops = sum(step_flops(*c, cfg) for c in counts[warm:warm + tr.window_steps])
     window_s = (tr.t1 - tr.t0 - tr.paused) / 1e9 if tr.t1 and tr.t0 else 0.0
     checks = {"draw_faults": float(sum(faults.values())),
               "nonfinite_loss": float(sum(not np.isfinite(x) for x in tr.losses))}

@@ -4,7 +4,8 @@ in the logits (the sentence-transformers MultipleNegativesRankingLoss
 family, as the reference system's recipe states it), and AdamW (optax
 ``adamw``: betas 0.9/0.999, eps 1e-8, decoupled weight decay 0.01 on every
 leaf) under optax's warmup-cosine schedule. fp32 throughout, TF32 off;
-``rnd`` rounds the matrix products' inputs for the control.
+``rnd`` rounds the matrix products' inputs for the control. The encoder
+and its leaves are the configuration's family's (``families/``).
 """
 
 from __future__ import annotations
@@ -15,8 +16,6 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
-
-from .bert import encode_tokens
 
 TEMPERATURE = 0.05
 MASK_VALUE = -1e9
@@ -33,11 +32,12 @@ def schedule(count: int, peak: float, warmup: int, decay: int) -> float:
     return float(f32(peak) * cos)
 
 
-def loss_fn(w, batch: Dict[str, torch.Tensor], heads: int, rnd=None) -> torch.Tensor:
-    """The masked, weighted InfoNCE of one triplet batch."""
-    za = encode_tokens(w, batch["a_ids"], batch["a_mask"], heads, rnd=rnd)
-    zb = encode_tokens(w, batch["b_ids"], batch["b_mask"], heads, rnd=rnd)
-    zh = encode_tokens(w, batch["h_ids"], batch["h_mask"], heads, rnd=rnd)
+def loss_fn(w, batch: Dict[str, torch.Tensor], encode: Callable, rnd=None) -> torch.Tensor:
+    """The masked, weighted InfoNCE of one triplet batch; ``encode(w, ids,
+    mask, rnd=)`` gives the (B, H) unit sentence embeddings."""
+    za = encode(w, batch["a_ids"], batch["a_mask"], rnd=rnd)
+    zb = encode(w, batch["b_ids"], batch["b_mask"], rnd=rnd)
+    zh = encode(w, batch["h_ids"], batch["h_mask"], rnd=rnd)
 
     def mm(a, b):
         return (a @ b) if rnd is None else (rnd(a) @ rnd(b))
@@ -66,10 +66,11 @@ def to_device(batch: Dict[str, np.ndarray], device, rows: Optional[slice] = None
     return out
 
 
-def run_steps(w0: Dict[str, torch.Tensor], batches: List[Dict[str, np.ndarray]], heads: int,
+def run_steps(w0: Dict[str, torch.Tensor], batches: List[Dict[str, np.ndarray]], loss: Callable,
               peak_lr: float, warmup: int, decay: int, weight_decay: float = 0.01,
               rnd: Optional[Callable] = None, moments=None, start: int = 0) -> Dict:
-    """AdamW steps from ``w0`` over ``batches``, the first of them the
+    """AdamW steps from ``w0`` over ``batches`` under ``loss(w, batch,
+    rnd)`` (the family's loss of one batch), the first of them the
     optimizer's step ``start`` (its moments ``moments`` = (m, v), else
     zeros). Returns each step's loss, each leaf's gradient norm at the
     first step and its change's norm after the last."""
@@ -81,9 +82,9 @@ def run_steps(w0: Dict[str, torch.Tensor], batches: List[Dict[str, np.ndarray]],
     device = next(iter(w0.values())).device
     for i, batch in enumerate(batches):
         t = start + i
-        loss = loss_fn(w, to_device(batch, device), heads, rnd)
-        grads = torch.autograd.grad(loss, list(w.values()))
-        losses.append(float(loss.detach()))
+        value = loss(w, to_device(batch, device), rnd)
+        grads = torch.autograd.grad(value, list(w.values()))
+        losses.append(float(value.detach()))
         lr = schedule(t, peak_lr, warmup, decay)
         with torch.no_grad():
             for (k, p), g in zip(w.items(), grads):
@@ -94,6 +95,6 @@ def run_steps(w0: Dict[str, torch.Tensor], batches: List[Dict[str, np.ndarray]],
                 mhat = m[k] / (1 - b1 ** (t + 1))
                 vhat = v2[k] / (1 - b2 ** (t + 1))
                 p.sub_(lr * (mhat / (vhat.sqrt() + eps) + weight_decay * p))
-        del grads, loss
+        del grads, value
     change = {k: float(torch.linalg.vector_norm(w[k].detach() - w0[k])) for k in w}
     return {"losses": losses, "grad0": grad0, "change": change}

@@ -8,8 +8,9 @@ from perfbench.tests.pb_tiny import ROOT
 
 PROBE = r"""
 import sys, importlib, pkgutil
-import perfbench, perfbench.readers, perfbench.drivers, perfbench.reference
-for pkg in (perfbench, perfbench.readers, perfbench.drivers, perfbench.reference):
+import perfbench, perfbench.readers, perfbench.drivers, perfbench.reference, perfbench.families
+for pkg in (perfbench, perfbench.readers, perfbench.drivers, perfbench.reference,
+            perfbench.families):
     for m in pkgutil.iter_modules(pkg.__path__):
         if m.name not in ("tests",):
             importlib.import_module(f"{pkg.__name__}.{m.name}")
