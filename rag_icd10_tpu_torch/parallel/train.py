@@ -31,6 +31,10 @@ hard negatives and the served level weights folded into the logits.
   gather, the gradient ``all_reduce``) run over the dp group, the ranks
   that hold the same tp shards (parallel/mesh.py ``train_layout``).
 
+- A ``models/deepseek_v3.py`` arch trains through the same single-device
+  step (``SentenceDeepseekV3`` takes ``SentenceBert``'s call); its
+  checkpoint is its own named tensors (``NamedTrainState``).
+
 The forward and backward are plain PyTorch autograd: no Pallas kernel of
 the JAX package has a backward pass (XLA differentiates the model there).
 Both steps record the spans ``train.step.forward`` (to the device,
@@ -50,6 +54,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.optim.lr_scheduler import LambdaLR
 
+from ..models import deepseek_v3
 from ..models.bert import BertArch, SentenceBert, init_params
 from ..models.convert_hf import (
     adam_leaves,
@@ -184,7 +189,7 @@ class TrainState:
     """What the JAX step threads through as (params, opt_state): the model
     with its fp32 parameters, its AdamW and the learning-rate schedule."""
 
-    model: SentenceBert
+    model: torch.nn.Module  # SentenceBert, or models/deepseek_v3.py's SentenceDeepseekV3
     optimizer: torch.optim.AdamW
     scheduler: LambdaLR
 
@@ -239,6 +244,43 @@ def opt_state_shardings(mesh: Optional[Mesh], params: Dict, opt_state) -> List[P
     return [()] + specs + specs + [()] * (len(opt_state) - 1 - 2 * len(paths))
 
 
+class NamedTrainState(TrainState):
+    """A ``TrainState`` over a model whose checkpoint is its own named
+    tensors (``models/deepseek_v3.py``), not the JAX layout: ``params``
+    gives its state dict (parameters and buffers) as fp32 numpy arrays,
+    and the optimizer's leaves follow ``model.parameters()``, in optax's
+    leaf layout ([count, *mu, *nu, count])."""
+
+    def params(self) -> Dict[str, np.ndarray]:
+        return {name: t.detach().to("cpu", torch.float32).numpy()
+                for name, t in self.model.state_dict().items()}
+
+    def opt_state_leaves(self) -> List[np.ndarray]:
+        state, count, moments = self.optimizer.state, 0, ([], [])
+        for p in self.model.parameters():
+            st = state.get(p, {})
+            if "step" in st:
+                count = int(float(st["step"]))
+            for key, out in zip(("exp_avg", "exp_avg_sq"), moments):
+                x = st.get(key)
+                out.append((torch.zeros_like(p) if x is None else x).detach()
+                           .to("cpu", torch.float32).numpy())
+        return adam_leaves(count, *moments)
+
+    def load_opt_state(self, leaves) -> None:
+        params = list(self.model.parameters())
+        count, mu, nu = split_adam_leaves(leaves, len(params))
+        step = torch.tensor(float(count), dtype=torch.float32)
+        sd = self.optimizer.state_dict()
+        sd["state"] = {
+            i: {"step": step.clone(),
+                "exp_avg": torch.from_numpy(np.array(m, np.float32)).to(p.device),
+                "exp_avg_sq": torch.from_numpy(np.array(v, np.float32)).to(p.device)}
+            for i, (p, m, v) in enumerate(zip(params, mu, nu))}
+        self.optimizer.load_state_dict(sd)
+        self._resume_schedule(leaves)
+
+
 class TensorParallelTrainState(TrainState):
     """A ``TrainState`` over a ``TensorParallelBert``: AdamW steps this
     rank's shards, whose moments live with them. ``params`` and
@@ -286,7 +328,7 @@ class TensorParallelTrainState(TrainState):
 
 
 def init_train_state(
-    arch: BertArch,
+    arch: Union[BertArch, deepseek_v3.DeepseekV3Arch],
     mesh: Optional[Mesh] = None,
     learning_rate: float = 2e-5,
     seed: int = 0,
@@ -304,7 +346,20 @@ def init_train_state(
     existing state instead of a seeded init: a warm start or resume must
     survive the dp and tp paths, whose ranks all start from the same host
     values. A dimension that tp splits but does not divide raises
-    ``ValueError``."""
+    ``ValueError``.
+
+    A ``DeepseekV3Arch`` trains on ``device`` alone (a ``NamedTrainState``;
+    a mesh raises ``ValueError``); its ``params`` are the model's named
+    tensors (``deepseek_v3.load_weights``)."""
+    if isinstance(arch, deepseek_v3.DeepseekV3Arch):
+        if mesh is not None:
+            raise ValueError(f"{deepseek_v3.MODEL_TYPE} trains on one device: no dp/tp mesh")
+        if params is None:
+            params = deepseek_v3.init_params(arch, seed=seed)
+        with torch.device(resolve_device(device)):
+            model = deepseek_v3.SentenceDeepseekV3(arch)
+        model.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in params.items()})
+        return _with_optimizer(NamedTrainState, model, learning_rate, schedule, opt_state)
     layout = train_layout(mesh) if mesh is not None else None
     if params is None:
         params = init_params(arch, seed=seed)
@@ -316,6 +371,10 @@ def init_train_state(
         with torch.device(layout.device if layout is not None else resolve_device(device)):
             model, kind = SentenceBert(master), TrainState
         model.load_state_dict(params_from_jax(params))
+    return _with_optimizer(kind, model, learning_rate, schedule, opt_state)
+
+
+def _with_optimizer(kind, model, learning_rate, schedule, opt_state) -> TrainState:
     model.train()
     optimizer, scheduler = make_optimizer(model, learning_rate if schedule is None else schedule)
     state = kind(model, optimizer, scheduler)
@@ -354,7 +413,7 @@ def _check_batch(batch: Dict) -> None:
         raise ValueError("h_ids given without h_group title ids")
 
 
-def _embed(model: SentenceBert, batch: Dict):
+def _embed(model: torch.nn.Module, batch: Dict):
     """(za, zb, zh) of a batch's rows; anchors and hard negatives share one
     stacked forward (same sequence length, twice the rows)."""
     if "h_ids" in batch:

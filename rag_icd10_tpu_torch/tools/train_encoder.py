@@ -37,13 +37,23 @@ Single-device by default; --dp N --tp M runs over a (dp, tp) mesh
 tp (parallel/tensor_parallel.py). --tp alone builds no mesh, as in the
 JAX tool.
 
+The encoder is BERT unless a ``config.json`` beside --init-from names
+``model_type`` ``deepseek_v3``: the encoder is then that decoder
+(models/deepseek_v3.py: e.g. one expert-parallel rank's share of
+Moonlight-16B-A3B), single-device, warm-started from the checkpoint's
+``.npz`` in the published parameter names, and saved the same way with its
+``config.json`` (``opt_state.npz`` follows its parameter order). It is not
+served, so --eval-gate refuses it.
+
 Each step records spans in the port's registry (utils/metrics.py), with
 the step number as their id: ``train.draw`` (in ``draw_batch``:
 ``train.draw.sample``, ``train.draw.tokenize``) and ``train.step`` (in
 parallel/train.py: ``train.step.forward``, ``.backward``, ``.update``).
 The --log-every line prints the interval's mean draw, step and wait (the
 step's self time: the host blocked on the device) from them, and the share
-of the tokenizer's piece lookups that hit its memo over the interval.
+of the tokenizer's piece lookups that hit its memo over the interval; for
+a mixture-of-experts encoder, also the share of the routed token slots its
+held experts took and their max/mean load (``metrics.counters``).
 """
 
 from __future__ import annotations
@@ -296,6 +306,23 @@ def memo_hit_pct(before: Dict[str, int], after: Dict[str, int]) -> float:
     return 100.0 * hits / looked if looked else float("nan")
 
 
+def moe_load(before: Dict[str, np.ndarray], after: Dict[str, np.ndarray]) -> Tuple[float, float]:
+    """Between two ``metrics.counters("moe.")``: the percent of the routed
+    token slots that went to the experts held here, and the max over the
+    mean of the slots each held expert took, averaged over the layers;
+    nan where no slot was routed."""
+    def delta(key):
+        return after[key] - before.get(key, 0)
+
+    held = [k for k in after if k.startswith("moe.held_slots.")]
+    routed = sum(float(delta("moe.routed_slots." + k.rsplit(".", 1)[1])) for k in held)
+    took = [delta(k).astype(np.float64) for k in held]
+    if not routed or not any(t.sum() for t in took):
+        return float("nan"), float("nan")
+    share = 100.0 * sum(float(t.sum()) for t in took) / routed
+    return share, float(np.mean([t.max() / t.mean() for t in took if t.sum()]))
+
+
 def select_vocab(explicit_vocab, init_from, build_fresh):
     """Tokenizer vocab for a training run.
 
@@ -427,6 +454,7 @@ def main(argv=None, device: Union[str, torch.device] = "cuda") -> int:
     )
     from ..config import get_config
     from ..data.corpus import load_corpus
+    from ..models import deepseek_v3
     from ..models.bert import BertArch
     from ..models.convert_hf import load_params, save_params
     from ..models.tokenizer import WordPieceTokenizer
@@ -440,6 +468,12 @@ def main(argv=None, device: Union[str, torch.device] = "cuda") -> int:
     from ..utils.device_guard import acquire_device
     from ..utils.metrics import metrics
 
+    # the architecture is the one the starting checkpoint's config.json
+    # names; BERT where there is none (or it names BERT)
+    decoder = deepseek_v3.arch_beside(args.init_from) if args.init_from else None
+    if decoder is not None and args.eval_gate is not None:
+        parser.error(f"--eval-gate embeds the corpus with the served BERT encoder; "
+                     f"a {deepseek_v3.MODEL_TYPE} encoder is not served")
     dev = acquire_device(device, what="encoder training")
     cfg = get_config()
     corpus = load_corpus(cfg.data_path)
@@ -482,18 +516,28 @@ def main(argv=None, device: Union[str, torch.device] = "cuda") -> int:
     )
 
     enc_cfg = cfg.encoder
-    arch = BertArch(
-        vocab_size=max(enc_cfg.vocab_size, tok.vocab_size),
-        hidden_size=enc_cfg.hidden_size,
-        num_layers=enc_cfg.num_layers,
-        num_heads=enc_cfg.num_heads,
-        intermediate_size=enc_cfg.intermediate_size,
-        max_position_embeddings=enc_cfg.max_position_embeddings,
-    )
     params = None
-    if args.init_from:
-        logger.info("warm-starting params from %s", args.init_from)
-        params = load_params(args.init_from)
+    if decoder is not None:
+        if tok.vocab_size > decoder.vocab_size:
+            raise ValueError(f"the vocabulary has {tok.vocab_size} ids, the checkpoint's "
+                             f"embedding {decoder.vocab_size} rows")
+        arch = decoder
+        logger.info("warm-starting a %s (%d layers, experts held %s of %d) from %s",
+                    deepseek_v3.MODEL_TYPE, arch.num_hidden_layers, list(arch.held),
+                    arch.n_routed_experts, args.init_from)
+        params = deepseek_v3.load_weights(args.init_from, arch)
+    else:
+        arch = BertArch(
+            vocab_size=max(enc_cfg.vocab_size, tok.vocab_size),
+            hidden_size=enc_cfg.hidden_size,
+            num_layers=enc_cfg.num_layers,
+            num_heads=enc_cfg.num_heads,
+            intermediate_size=enc_cfg.intermediate_size,
+            max_position_embeddings=enc_cfg.max_position_embeddings,
+        )
+        if args.init_from:
+            logger.info("warm-starting params from %s", args.init_from)
+            params = load_params(args.init_from)
     schedule = warmup_cosine_decay_schedule(
         0.0, args.lr, warmup_steps=min(100, args.steps // 10 + 1),
         decay_steps=args.steps,
@@ -561,7 +605,10 @@ def main(argv=None, device: Union[str, torch.device] = "cuda") -> int:
         leaves = state.opt_state_leaves() if step is not None else None
         if not writer:
             return
-        save_params(params, str(out / "params.npz"))
+        if decoder is not None:
+            deepseek_v3.save_weights(params, arch, str(out / "params.npz"))
+        else:
+            save_params(params, str(out / "params.npz"))
         tok.save_vocab(str(out / "vocab.txt"))
         if step is not None:
             np.savez(
@@ -592,6 +639,7 @@ def main(argv=None, device: Union[str, torch.device] = "cuda") -> int:
     t0 = time.time()
     t_log = time.time_ns()
     memo_log = tok.memo_stats()
+    moe_log = metrics.counters("moe.")
     losses = []
     for step in range(start_step, args.steps):
         # epoch-clean cursor: consume the tail of the old permutation and
@@ -629,13 +677,16 @@ def main(argv=None, device: Union[str, torch.device] = "cuda") -> int:
             draw_ms, step_ms, wait_ms = interval_split_ms(metrics, t_log)
             t_log = time.time_ns()
             memo = tok.memo_stats()
-            logger.info(
-                "step %d/%d loss=%.4f acc=%.3f (%.2f steps/s; draw %.1f ms, "
-                "step %.1f ms, wait %.1f ms; piece memo %.1f%% hits)",
-                step + 1, args.steps, float(m["loss"]),
-                float(m["accuracy"]), rate, draw_ms, step_ms, wait_ms,
-                memo_hit_pct(memo_log, memo),
-            )
+            line = ("step %d/%d loss=%.4f acc=%.3f (%.2f steps/s; draw %.1f ms, "
+                    "step %.1f ms, wait %.1f ms; piece memo %.1f%% hits)")
+            values = [step + 1, args.steps, float(m["loss"]), float(m["accuracy"]), rate,
+                      draw_ms, step_ms, wait_ms, memo_hit_pct(memo_log, memo)]
+            if decoder is not None:  # reads the expert counters off the device
+                moe = metrics.counters("moe.")
+                line += "; experts held %.1f%% of slots, load max/mean %.2f"
+                values += moe_load(moe_log, moe)
+                moe_log = moe
+            logger.info(line, *values)
             memo_log = memo
         if args.save_every and (step + 1) % args.save_every == 0:
             save_checkpoint(state, step + 1)
@@ -647,8 +698,9 @@ def main(argv=None, device: Union[str, torch.device] = "cuda") -> int:
     )
     logger.info("saved trained params -> %s/params.npz (final loss %.4f "
                 "over %d steps)", out, final_loss, len(losses))
-    print(f"export EMBEDDING_WEIGHTS_PATH={out}/params.npz")
-    print(f"export EMBEDDING_VOCAB_PATH={out}/vocab.txt")
+    if decoder is None:
+        print(f"export EMBEDDING_WEIGHTS_PATH={out}/params.npz")
+        print(f"export EMBEDDING_VOCAB_PATH={out}/vocab.txt")
     if args.eval_gate is not None:
         blessed = run_eval_gate(
             state.params(), tok, corpus, out, args.eval_gate, cfg,

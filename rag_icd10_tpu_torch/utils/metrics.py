@@ -6,11 +6,14 @@ rescore/confidence) and every phase of the encoder-training loop records
 a span: its name, start and end in ``time.time_ns()`` (the clock a device
 trace can be aligned to), the innermost span open on the same thread when
 it started (its parent) and an id it shares with that parent. Spans are
-kept in a bounded ring per name; /stats surfaces counts + p50/p95/mean
-per name. torch.profiler traces can be started/stopped at runtime for
-deep dives (Chrome trace JSON, viewable in Perfetto): while one runs,
-each span is also a ``record_function`` range of its name, so the trace
-shows the stages above the kernels. The stop result carries the CUDA
+kept in a bounded ring per name (``RING``: enough for a training
+window's per-layer spans); /stats surfaces counts + p50/p95/mean per name.
+Counters (``count``) add numbers, or tensors where they live (on the
+device, with no host read), and are read on demand (``counters``).
+torch.profiler traces can be started/stopped at runtime for deep dives
+(Chrome trace JSON, viewable in Perfetto): while one runs, each span is
+also a ``record_function`` range of its name, so the trace shows the
+stages above the kernels. The stop result carries the CUDA
 allocator's memory statistics.
 """
 
@@ -20,7 +23,7 @@ import threading
 import time
 from collections import deque
 from pathlib import Path
-from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple
+from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -71,17 +74,24 @@ class _Open:
         return False
 
 
+# spans kept per name: a 25-s training window of a layer-by-layer span (a
+# few hundred steps at ten a step) with room to spare; about 1 MB a name
+RING = 8192
+
+
 class StageMetrics:
     """Thread-safe span registry: a ring of the last ``window`` spans per
-    name, with the count recorded and the count dropped from the ring."""
+    name, with the count recorded and the count dropped from the ring; and
+    named counters."""
 
-    def __init__(self, window: int = 512):
+    def __init__(self, window: int = RING):
         self.window = window
         self._lock = threading.Lock()
         self._local = threading.local()
         self._spans: Dict[str, deque] = {}
         self._counts: Dict[str, int] = {}
         self._dropped: Dict[str, Tuple[int, int]] = {}  # name -> (count, newest's end)
+        self._counters: Dict[str, Union[int, float, torch.Tensor]] = {}
 
     def span(self, name: str, id: Optional[int] = None) -> _Open:
         """A span of ``name`` around a ``with`` block. A span opened inside
@@ -118,6 +128,33 @@ class StageMetrics:
         out.sort(key=lambda s: s.start_ns)
         return out
 
+    def count(self, name: str, value: Union[int, float, torch.Tensor]) -> None:
+        """Add ``value`` to counter ``name``: a number on the host, or a
+        tensor (elementwise) where it lives, with no host read: a device
+        tensor is added by the device."""
+        with self._lock:
+            held = self._counters.get(name)
+            if isinstance(value, torch.Tensor):
+                value = value.detach()
+                if held is None:
+                    self._counters[name] = value.clone()
+                elif held.shape != value.shape:
+                    raise ValueError(f"counter {name} holds shape {tuple(held.shape)}; "
+                                     f"added {tuple(value.shape)}")
+                else:
+                    held.add_(value)
+            else:
+                self._counters[name] = value if held is None else held + value
+
+    def counters(self, prefix: str = "") -> Dict[str, np.ndarray]:
+        """Every counter whose name starts with ``prefix``, since the process
+        started (or the last ``reset``), as host arrays: this reads the
+        device where a counter lives there."""
+        with self._lock:
+            held = {k: v for k, v in self._counters.items() if k.startswith(prefix)}
+        return {k: (v.to("cpu", copy=True).numpy() if isinstance(v, torch.Tensor)
+                    else np.asarray(v)) for k, v in held.items()}
+
     def dropped(self, name: str) -> int:
         """Spans of ``name`` dropped from the full ring so far."""
         with self._lock:
@@ -143,6 +180,7 @@ class StageMetrics:
             self._spans.clear()
             self._counts.clear()
             self._dropped.clear()
+            self._counters.clear()
 
 
 def self_ns(span: Span, children: Iterable[Span]) -> int:

@@ -213,3 +213,53 @@ def test_interval_split_reads_the_registry():
     assert 1.0 <= draw_ms < step_ms
     assert 2.0 <= wait_ms < step_ms - 3.0
     assert all(math.isnan(x) for x in ttool.interval_split_ms(reg, time.time_ns()))
+
+
+def test_the_ring_holds_a_window_of_per_layer_spans():
+    """A training window of the Moonlight cell records each of ``mla``,
+    ``moe.route``, ``moe.experts`` and ``moe.shared`` about ten times a step
+    (two forward calls over five or four layers) over about 70 steps, warm
+    steps and the compared ones included: the default ring keeps them all,
+    so a reader of the window gets every one (not None)."""
+    from rag_icd10_tpu_torch.utils.metrics import RING
+
+    reg = StageMetrics()
+    assert reg.window == RING >= 8192
+    since = time.time_ns()
+    for step in range(70):
+        with reg.span("train.step", id=step):
+            with reg.span("train.step.forward"):
+                for _ in range(2):  # anchors with hard negatives, then positives
+                    for _ in range(5):
+                        with reg.span("mla"):
+                            pass
+                    for _ in range(4):
+                        for name in ("moe.route", "moe.experts", "moe.shared"):
+                            with reg.span(name):
+                                pass
+    for name, per_step in (("mla", 10), ("moe.route", 8), ("moe.experts", 8)):
+        got = reg.spans(name, since)
+        assert got is not None and len(got) == 70 * per_step and reg.dropped(name) == 0
+        assert {s.parent for s in got} == {"train.step.forward"}
+        assert [s.id for s in got[::per_step]] == list(range(70))
+
+
+def test_counters_add_on_the_device_and_read_on_demand():
+    reg = StageMetrics()
+    # a known routing: 5 tokens, top 2 over 4 experts, of which 1 and 3 are held here
+    idx = torch.tensor([[1, 0], [3, 1], [2, 0], [1, 3], [0, 2]])
+    for _ in range(3):
+        held = torch.stack([(idx == e).sum() for e in (1, 3)])
+        reg.count("moe.held_slots.1", held)
+        reg.count("moe.routed_slots.1", idx.numel())
+    got = reg.counters("moe.")
+    assert got["moe.held_slots.1"].tolist() == [9, 6]
+    assert int(got["moe.routed_slots.1"]) == 30
+    assert isinstance(reg._counters["moe.held_slots.1"], torch.Tensor)  # kept where it lives
+    got["moe.held_slots.1"][0] = -1  # a read is a copy
+    assert reg.counters()["moe.held_slots.1"].tolist() == [9, 6]
+    with pytest.raises(ValueError, match="shape"):
+        reg.count("moe.held_slots.1", torch.zeros(3, dtype=torch.long))
+    assert reg.counters("train.") == {}
+    reg.reset()
+    assert reg.counters() == {}
