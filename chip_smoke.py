@@ -142,9 +142,25 @@
    K1 launched on every timed request; the /query p50 and max, NER
    forwards per request and ms per forward (beside the fused phase's
    12-layer classifier's) printed.
-10. Prints one JSON line describing each kernel (K1, K2 and K5 with their
+10. MLA phase (ops/mla_attention.py, ops/csrc/mla_attention.cu): the
+   latent-attention kernels at the Moonlight cell's two shapes (512 rows
+   of 48 positions, 256 of 96; 16 heads, 128 + 64 / 128 dimensions,
+   bf16), held against the plain
+   version (context and the three gradients) and timed forward and
+   forward + backward (CUDA events back to back, and behind a sleeping
+   kernel for the card's time; each kernel's share by torch.profiler)
+   beside their bound (each call's inputs read once and outputs written
+   once at 3.35 TB/s, or its causal products at 989 TFLOP/s, the larger),
+   the plain version and F.scaled_dot_product_attention on the same q, k
+   and v (library_ms; a yardstick the port never calls); then one
+   forward and backward of the encoder at Moonlight's widths in the
+   cell's two shapes, whose kernel launches (30) and forward calls (10)
+   are the entry's launches_by_path. Alone:
+   python3 -c 'import chip_smoke; chip_smoke.mla_phase()'.
+11. Prints one JSON line describing each kernel (K1, K2 and K5 with their
    sharded launches and rows; K1 with its eval_gate, eval_gate_tp and
-   ner_train launches), and as the last line {"ok": true, "device": {...}}.
+   ner_train launches; the MLA kernels), and as the last line
+   {"ok": true, "device": {...}}.
 
 Any failed check raises: the script then exits non-zero. It also exits
 non-zero, printing no result, when CUDA is unavailable or when the
@@ -2946,6 +2962,157 @@ def ner_train_phase(corpus, cfg, fused_ner_ms: float) -> dict:
     return found
 
 
+MLA_SHAPES = ((512, 48), (256, 96))  # (rows, positions) of the Moonlight cell's two forwards
+MLA_HEADS, MLA_NOPE, MLA_ROPE, MLA_V, MLA_LORA = 16, 128, 64, 128, 512
+
+
+def mla_bound_ms(b: int, s: int):
+    """Least time of one forward and one backward: each call's inputs read
+    once and outputs written once (bf16, the fp32 cos/sin and log-sum-exp),
+    or its products over the causal (query, key) pairs at the bf16 peak:
+    forward q.k (192) and P.v (128); backward q.k again, dO.v, P.dO, dS.k
+    and dS.q (192 + 128 + 128 + 192 + 192)."""
+    h, nope, rope, vd = MLA_HEADS, MLA_NOPE, MLA_ROPE, MLA_V
+    t = b * s
+    q, kv = t * h * (nope + rope) * 2, t * h * (nope + vd) * 2
+    kpe, ctx = t * rope * 2, t * h * vd * 2
+    tables, lse = 2 * s * rope * 4, t * h * 4
+    pairs = b * h * s * (s + 1) / 2
+    fwd = bound_ms(q + kv + kpe + tables + ctx + lse, 2 * pairs * (nope + rope + vd), "bf16")
+    bwd = bound_ms(q + kv + kpe + tables + ctx + lse + q + kv + kpe,
+                   2 * pairs * (3 * (nope + rope) + 2 * vd), "bf16")
+    return fwd, bwd
+
+
+def mla_phase() -> list:
+    """The MLA kernels at the Moonlight cell's shapes: held against the
+    plain version, timed beside their bound, the plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    sys.path.insert(0, str(ROOT))
+    from rag_icd10_tpu_torch.models.deepseek_v3 import rope_tables
+    from rag_icd10_tpu_torch.ops import mla_attention as mla
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h, nope, rope, vd, lora = MLA_HEADS, MLA_NOPE, MLA_ROPE, MLA_V, MLA_LORA
+    rows = []
+    for b, s in MLA_SHAPES:
+        gen = torch.Generator(device=DEVICE).manual_seed(s)
+
+        def normal(*shape):
+            return torch.randn(*shape, generator=gen, device=DEVICE).to(torch.bfloat16)
+
+        q = normal(b, s, h * (nope + rope)).requires_grad_(True)
+        kv = normal(b, s, h * (nope + vd)).requires_grad_(True)
+        kv_a = normal(b, s, lora + rope).requires_grad_(True)
+        d_out = normal(b, s, h * vd)
+        cos, sin = rope_tables(s, rope, 50000.0, DEVICE)
+        leaves = (q, kv, kv_a)
+
+        def step(fn, backward=True):
+            for t in leaves:
+                t.grad = None
+            out = fn(q, kv, kv_a[..., lora:], cos, sin, h)
+            if backward:
+                out.backward(d_out)
+            return out
+
+        got = step(mla.mla_attention).detach()
+        got_g = [t.grad.clone() for t in leaves]
+        want = step(mla.mla_attention_reference).detach()
+        errs = {"out": max_err(got.float(), want.float()) / want.float().abs().max().item()}
+        for name, g, t in zip(("dq", "dkv", "dk_pe"), got_g, leaves):
+            errs[name] = max_err(g.float(), t.grad.float()) / t.grad.float().abs().max().item()
+        check(errs["out"] <= 2 ** -7 and max(errs.values()) <= 2 ** -6,
+              f"MLA kernel against the plain version at B {b} S {s}: {errs}")
+
+        # the library yardstick on the same (rotated) q, k and v
+        with torch.no_grad():
+            q4 = q.detach().view(b, s, h, nope + rope).transpose(1, 2)
+            qr = mla.apply_rope(q4[..., nope:].float(), cos, sin).to(q.dtype)
+            kpe = mla.apply_rope(kv_a.detach()[..., lora:].float()[:, None], cos, sin)
+            kv4 = kv.detach().view(b, s, h, nope + vd).transpose(1, 2)
+            lq = torch.cat([q4[..., :nope], qr], -1).contiguous().requires_grad_(True)
+            lk = torch.cat([kv4[..., :nope], kpe.to(q.dtype).expand(b, h, s, rope)],
+                           -1).contiguous().requires_grad_(True)
+            lv = kv4[..., nope:].contiguous().requires_grad_(True)
+        d4 = d_out.view(b, s, h, vd).transpose(1, 2)
+
+        def library():
+            for t in (lq, lk, lv):
+                t.grad = None
+            F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                           scale=(nope + rope) ** -0.5).backward(d4)
+
+        (fwd_bound, fwd_by), (bwd_bound, bwd_by) = mla_bound_ms(b, s)
+        row = {
+            "B": b, "S": s, "heads": h, "dims": [nope, rope, vd], "max_rel_err": errs,
+            "fwd_ms": time_ms(lambda: step(mla.mla_attention, backward=False)),
+            "ms": time_ms(lambda: step(mla.mla_attention)),
+            "fwd_device_ms": device_ms(lambda: step(mla.mla_attention, backward=False)),
+            "device_ms": device_ms(lambda: step(mla.mla_attention)),
+            "host_ms": host_ms(lambda: step(mla.mla_attention)),
+            "bound_ms": fwd_bound + bwd_bound, "bound_by": f"{fwd_by} + {bwd_by}",
+            "fwd_bound_ms": fwd_bound,
+            "plain_fwd_ms": time_ms(lambda: step(mla.mla_attention_reference, backward=False)),
+            "plain_ms": time_ms(lambda: step(mla.mla_attention_reference)),
+            "library_ms": time_ms(library),
+            "library_device_ms": device_ms(library),
+            "kernels": kernel_split(lambda: step(mla.mla_attention)),
+        }
+        row["ratio"] = row["device_ms"] / row["bound_ms"]
+        rows.append(row)
+        print("MLA " + json.dumps(row), flush=True)
+        del q, kv, kv_a, lq, lk, lv, got, got_g, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def mla_train_step_launches() -> dict:
+    """The MLA kernels' launches in one step of the Moonlight cell's shape:
+    the encoder at Moonlight-16B-A3B's widths (5 layers, experts 0-7 held,
+    bf16 over fp32 masters), a forward of 512 rows of 48 positions and one
+    of 256 rows of 96, one backward through both. The counters' rise is
+    what the main path launched: 10 forward calls, 30 launches."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from rag_icd10_tpu_torch.models import deepseek_v3 as dv
+    from rag_icd10_tpu_torch.ops import mla_attention as mla
+    from rag_icd10_tpu_torch.utils.metrics import metrics
+
+    config = dict(
+        model_type="deepseek_v3", vocab_size=21128, hidden_size=2048, intermediate_size=11264,
+        moe_intermediate_size=1408, num_hidden_layers=5, num_attention_heads=16,
+        kv_lora_rank=512, q_lora_rank=None, qk_nope_head_dim=128, qk_rope_head_dim=64,
+        v_head_dim=128, n_routed_experts=64, num_experts_per_tok=6, n_shared_experts=2,
+        routed_scaling_factor=2.446, norm_topk_prob=True, first_k_dense_replace=1,
+        moe_layer_freq=1, rms_norm_eps=1e-5, rope_theta=50000, max_position_embeddings=8192,
+        scoring_func="sigmoid", topk_method="noaux_tc", n_group=1, topk_group=1,
+        experts_held=list(range(8)))
+    arch = dv.DeepseekV3Arch.from_config(config, compute_dtype=torch.bfloat16)
+    with torch.device(DEVICE):
+        model = dv.SentenceDeepseekV3(arch)
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    mla.mla_attention.launches = 0
+    calls = int(metrics.counters("mla.").get("mla.kernel_calls", 0))
+    loss = 0.0
+    for b, s in MLA_SHAPES:
+        ids = torch.randint(1, arch.vocab_size, (b, s), generator=gen, device=DEVICE)
+        loss = loss + model(ids, torch.ones_like(ids)).float().pow(2).sum()
+    loss.backward()
+    torch.cuda.synchronize()
+    found = {"launches": mla.mla_attention.launches,
+             "kernel_calls": int(metrics.counters("mla.").get("mla.kernel_calls", 0)) - calls}
+    check(found == {"launches": 30, "kernel_calls": 10},
+          f"one Moonlight-shaped step launched the MLA kernels {found}")
+    print("MLA train step " + json.dumps(found), flush=True)
+    del model, loss
+    torch.cuda.empty_cache()
+    return found
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -3016,6 +3183,8 @@ def main() -> int:
     e2e["ner_train"] = {key: ner_train[key] for key in
                         ("card_vs_cpu", "step", "tool", "serve", "phase_s")}
     main_path["K1"]["launches_by_path"]["ner_train"] = ner_train["serve"]["k1_launches"]
+    mla_rows = mla_phase()
+    mla_step = mla_train_step_launches()
     check(jax_before or sys.modules.get("jax") is None, "the port imported JAX")
     check(not any(m == "rag_icd10_tpu" or m.startswith("rag_icd10_tpu.")
                   for m in sys.modules), "the port imported the JAX package")
@@ -3050,6 +3219,14 @@ def main() -> int:
                                          "fused", "sharded") if key in row},
             "sweep": sweeps[kid],
         })
+    kernels.append({
+        "name": "mla_attention (mla_attn_fwd, mla_attn_bwd_dq, mla_attn_bwd_dkv)",
+        "route": "cuda",
+        "source": "rag_icd10_tpu_torch/ops/csrc/mla_attention.cu",
+        "replaces": None,
+        "main_shapes": mla_rows,
+        "launches_by_path": {"moonlight_train_step": mla_step},
+    })
     e2e["sketch_1M"] = sketch_large
     print("e2e " + json.dumps(e2e), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

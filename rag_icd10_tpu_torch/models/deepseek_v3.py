@@ -12,7 +12,10 @@ of the DeepSeek-V3 checkpoints):
   k_nope and v; ``o_proj``. RoPE on the rope dimensions, pairs interleaved
   as the modelling code de-interleaves them; softmax scale
   ``(qk_nope + qk_rope) ** -0.5`` (no ``rope_scaling``). The mask is
-  causal; padding is on the right, so no valid position sees a pad.
+  causal; padding is on the right, so no valid position sees a pad. The
+  core between the projections (RoPE, logits, softmax, P.V) is
+  ``ops/mla_attention.py``: a hand-written kernel on the card, its plain
+  version on the CPU.
 - SwiGLU (``silu``) feed-forward: dense in the first
   ``first_k_dense_replace`` layers, mixture of experts after them.
 - The router (``noaux_tc``): sigmoid scores over all ``n_routed_experts``
@@ -59,6 +62,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.mla_attention import mla_attention
 from ..utils.metrics import metrics
 from .bert import mean_pool_normalize
 
@@ -181,15 +185,6 @@ def rope_tables(seq: int, dim: int, theta: float, device) -> Tuple[torch.Tensor,
     return emb.cos(), emb.sin()
 
 
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """RoPE on (..., seq, dim) with interleaved pairs: (x[2i], x[2i+1])
-    are de-interleaved into the halves, then rotated by rotate_half."""
-    d = x.shape[-1]
-    x = x.unflatten(-1, (d // 2, 2)).transpose(-1, -2).flatten(-2)
-    rot = torch.cat([-x[..., d // 2:], x[..., : d // 2]], dim=-1)
-    return x * cos + rot * sin
-
-
 class LatentAttention(nn.Module):
     """MLA without q-LoRA (the published module's parameter names)."""
 
@@ -204,27 +199,13 @@ class LatentAttention(nn.Module):
                                 a.num_attention_heads * (a.qk_nope_head_dim + a.v_head_dim), a)
         self.o_proj = Linear(a.num_attention_heads * a.v_head_dim, h, a)
 
-    def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-                causal: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
         a = self.arch
-        b, s, _ = x.shape
-        nh, nope, rope, vd = (a.num_attention_heads, a.qk_nope_head_dim, a.qk_rope_head_dim,
-                              a.v_head_dim)
-        dt = a.compute_dtype
-        q = self.q_proj(x).view(b, s, nh, nope + rope).transpose(1, 2)
-        q_nope, q_pe = q.split([nope, rope], dim=-1)
-        latent, k_pe = self.kv_a_proj_with_mqa(x).split([a.kv_lora_rank, rope], dim=-1)
-        kv = self.kv_b_proj(self.kv_a_layernorm(latent)).view(b, s, nh, nope + vd).transpose(1, 2)
-        k_nope, v = kv.split([nope, vd], dim=-1)
-        q_pe = apply_rope(q_pe.float(), cos, sin).to(dt)
-        k_pe = apply_rope(k_pe.float()[:, None], cos, sin).to(dt)  # one k_pe for every head
-        q = torch.cat([q_nope, q_pe], dim=-1)
-        k = torch.cat([k_nope, k_pe.expand(b, nh, s, rope)], dim=-1)
-        # bf16 x bf16 products are exact in fp32: the logits carry fp32 accumulation
-        scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(nope + rope)
-        probs = torch.softmax(scores + causal, dim=-1).to(dt)
-        ctx = torch.matmul(probs, v)  # (B, heads, S, v)
-        return self.o_proj(ctx.transpose(1, 2).reshape(b, s, nh * vd))
+        q = self.q_proj(x)
+        latent, k_pe = self.kv_a_proj_with_mqa(x).split([a.kv_lora_rank, a.qk_rope_head_dim],
+                                                         dim=-1)
+        kv = self.kv_b_proj(self.kv_a_layernorm(latent))
+        return self.o_proj(mla_attention(q, kv, k_pe, cos, sin, a.num_attention_heads))
 
 
 class SwiGLU(nn.Module):
@@ -317,9 +298,9 @@ class DecoderLayer(nn.Module):
         self.input_layernorm = RMSNorm(h, eps)
         self.post_attention_layernorm = RMSNorm(h, eps)
 
-    def forward(self, x, cos, sin, causal) -> torch.Tensor:
+    def forward(self, x, cos, sin) -> torch.Tensor:
         with metrics.span("mla"):
-            x = x + self.self_attn(self.input_layernorm(x), cos, sin, causal).float()
+            x = x + self.self_attn(self.input_layernorm(x), cos, sin).float()
         return x + self.mlp(self.post_attention_layernorm(x)).float()
 
 
@@ -338,10 +319,9 @@ class DeepseekV3Model(nn.Module):
         a, s = self.arch, input_ids.shape[1]
         dev = input_ids.device
         cos, sin = rope_tables(s, a.qk_rope_head_dim, a.rope_theta, dev)
-        causal = torch.full((s, s), torch.finfo(torch.float32).min, device=dev).triu(1)
         x = self.embed_tokens(input_ids)
         for layer in self.layers:
-            x = layer(x, cos, sin, causal)
+            x = layer(x, cos, sin)
         return self.norm(x)
 
 

@@ -53,7 +53,9 @@ The --log-every line prints the interval's mean draw, step and wait (the
 step's self time: the host blocked on the device) from them, and the share
 of the tokenizer's piece lookups that hit its memo over the interval; for
 a mixture-of-experts encoder, also the share of the routed token slots its
-held experts took and their max/mean load (``metrics.counters``).
+held experts took and their max/mean load, and the latent-attention
+kernel's forward calls a step (``metrics.counters``; 0 where the plain
+version ran, on the CPU).
 """
 
 from __future__ import annotations
@@ -321,6 +323,13 @@ def moe_load(before: Dict[str, np.ndarray], after: Dict[str, np.ndarray]) -> Tup
         return float("nan"), float("nan")
     share = 100.0 * sum(float(t.sum()) for t in took) / routed
     return share, float(np.mean([t.max() / t.mean() for t in took if t.sum()]))
+
+
+def mla_kernel_calls() -> int:
+    """Forward calls of the latent-attention kernel so far (ops/mla_attention.py)."""
+    from ..utils.metrics import metrics
+
+    return int(metrics.counters("mla.").get("mla.kernel_calls", 0))
 
 
 def select_vocab(explicit_vocab, init_from, build_fresh):
@@ -640,6 +649,7 @@ def main(argv=None, device: Union[str, torch.device] = "cuda") -> int:
     t_log = time.time_ns()
     memo_log = tok.memo_stats()
     moe_log = metrics.counters("moe.")
+    mla_log, step_log = (mla_kernel_calls() if decoder is not None else 0), start_step
     losses = []
     for step in range(start_step, args.steps):
         # epoch-clean cursor: consume the tail of the old permutation and
@@ -682,10 +692,11 @@ def main(argv=None, device: Union[str, torch.device] = "cuda") -> int:
             values = [step + 1, args.steps, float(m["loss"]), float(m["accuracy"]), rate,
                       draw_ms, step_ms, wait_ms, memo_hit_pct(memo_log, memo)]
             if decoder is not None:  # reads the expert counters off the device
-                moe = metrics.counters("moe.")
-                line += "; experts held %.1f%% of slots, load max/mean %.2f"
-                values += moe_load(moe_log, moe)
-                moe_log = moe
+                moe, mla_calls = metrics.counters("moe."), mla_kernel_calls()
+                line += ("; experts held %.1f%% of slots, load max/mean %.2f; "
+                         "MLA kernel %.1f calls a step")
+                values += [*moe_load(moe_log, moe), (mla_calls - mla_log) / (step + 1 - step_log)]
+                moe_log, mla_log, step_log = moe, mla_calls, step + 1
             logger.info(line, *values)
             memo_log = memo
         if args.save_every and (step + 1) % args.save_every == 0:

@@ -42,6 +42,7 @@ from rag_icd10_tpu_torch import config as tconfig
 from rag_icd10_tpu_torch.data.corpus import synthetic_corpus
 from rag_icd10_tpu_torch.models import deepseek_v3 as dv
 from rag_icd10_tpu_torch.models.tokenizer import WordPieceTokenizer
+from rag_icd10_tpu_torch.ops import mla_attention as mla
 from rag_icd10_tpu_torch.parallel import train as ptrain
 from rag_icd10_tpu_torch.parallel.mesh import make_mesh
 from rag_icd10_tpu_torch.tools import train_encoder as ttool
@@ -412,6 +413,108 @@ def test_rope_is_the_published_rotation():
     cos, sin = dv.rope_tables(5, 8, 50000.0, "cpu")
     d = x.view(2, 3, 5, 4, 2).transpose(4, 3).reshape(2, 3, 5, 8)
     rotate_half = torch.cat([-d[..., 4:], d[..., :4]], dim=-1)
-    assert torch.allclose(dv.apply_rope(x, cos, sin), d * cos + rotate_half * sin)
+    assert torch.allclose(mla.apply_rope(x, cos, sin), d * cos + rotate_half * sin)
     inv = 1.0 / 50000.0 ** (torch.arange(0, 8, 2).float() / 8)
     assert torch.allclose(cos[3, :4], torch.cos(3 * inv)) and math.isclose(float(sin[0, 0]), 0.0)
+
+
+# --------------------------------------- the attention core (ops/mla_attention.py)
+
+
+def _old_latent_attention(attn, x, cos, sin, causal):
+    """``LatentAttention.forward`` as it was written inline before the core
+    moved to ops/mla_attention.py, kept verbatim as the plain version's
+    yardstick."""
+    a = attn.arch
+    b, s, _ = x.shape
+    nh, nope, rope, vd = (a.num_attention_heads, a.qk_nope_head_dim, a.qk_rope_head_dim,
+                          a.v_head_dim)
+    dt = a.compute_dtype
+    q = attn.q_proj(x).view(b, s, nh, nope + rope).transpose(1, 2)
+    q_nope, q_pe = q.split([nope, rope], dim=-1)
+    latent, k_pe = attn.kv_a_proj_with_mqa(x).split([a.kv_lora_rank, rope], dim=-1)
+    kv = attn.kv_b_proj(attn.kv_a_layernorm(latent)).view(b, s, nh, nope + vd).transpose(1, 2)
+    k_nope, v = kv.split([nope, vd], dim=-1)
+    q_pe = mla.apply_rope(q_pe.float(), cos, sin).to(dt)
+    k_pe = mla.apply_rope(k_pe.float()[:, None], cos, sin).to(dt)  # one k_pe for every head
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([k_nope, k_pe.expand(b, nh, s, rope)], dim=-1)
+    # bf16 x bf16 products are exact in fp32: the logits carry fp32 accumulation
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(nope + rope)
+    probs = torch.softmax(scores + causal, dim=-1).to(dt)
+    ctx = torch.matmul(probs, v)  # (B, heads, S, v)
+    return attn.o_proj(ctx.transpose(1, 2).reshape(b, s, nh * vd))
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_plain_attention_core_is_the_old_inline_code_bit_for_bit(compute):
+    """The model's attention through ops/mla_attention.py on the CPU gives
+    the old inline code's output and every gradient (parameters and input)
+    bit for bit."""
+    arch = _arch(compute)
+    model = _model(arch, _params(arch))
+    attn = model.model.layers[1].self_attn
+    s = 11
+    x = torch.randn(3, s, arch.hidden_size, generator=torch.Generator().manual_seed(8))
+    cos, sin = dv.rope_tables(s, arch.qk_rope_head_dim, arch.rope_theta, "cpu")
+    causal = torch.full((s, s), torch.finfo(torch.float32).min).triu(1)
+    target = torch.randn(3, s, arch.hidden_size, generator=torch.Generator().manual_seed(9))
+    runs = []
+    for fn in (lambda xx: attn(xx, cos, sin), lambda xx: _old_latent_attention(attn, xx, cos, sin,
+                                                                               causal)):
+        attn.zero_grad()
+        xx = x.clone().requires_grad_(True)
+        out = fn(xx)
+        (out.float() * target).sum().backward()
+        grads = {n: p.grad.clone() for n, p in attn.named_parameters()}
+        runs.append((out.detach(), xx.grad, grads))
+    (new, dx_new, g_new), (old, dx_old, g_old) = runs
+    assert new.dtype == getattr(torch, compute)
+    assert torch.equal(new, old) and torch.equal(dx_new, dx_old)
+    assert set(g_new) == set(g_old) and len(g_new) == 5
+    for n in g_new:
+        assert torch.equal(g_new[n], g_old[n]), n
+
+
+def test_wrapper_takes_the_plain_path_for_cpu_tensors(monkeypatch):
+    """On CPU tensors every layer's attention core is the plain version:
+    no kernel launch, no ``mla.kernel_calls``."""
+    arch = _arch("bfloat16")
+    model = _model(arch, _params(arch))
+    calls = []
+    plain = mla.mla_attention_reference
+
+    def counted(*a, **kw):
+        calls.append(a[0].device.type)
+        return plain(*a, **kw)
+
+    monkeypatch.setattr(mla, "mla_attention_reference", counted)
+    launches = mla.mla_attention.launches
+    ids, mask = _rows(4, 9, seed=10)
+    model(ids, mask).sum().backward()
+    assert calls == ["cpu"] * arch.num_hidden_layers
+    assert mla.mla_attention.launches == launches
+    assert "mla.kernel_calls" not in metrics.counters("mla.")
+
+
+def _meta_inputs(b=2, s=5, heads=2, nope=128, rope=64, vd=128, dtype=torch.bfloat16):
+    with torch.device("meta"):
+        return (torch.empty(b, s, heads * (nope + rope), dtype=dtype),
+                torch.empty(b, s, heads * (nope + vd), dtype=dtype),
+                torch.empty(b, s, rope, dtype=dtype),
+                torch.empty(s, rope, dtype=torch.float32),
+                torch.empty(s, rope, dtype=torch.float32), heads)
+
+
+@pytest.mark.parametrize("bad, match", [
+    (dict(), "CUDA tensors"),  # a layout the kernels take, on no card
+    (dict(rope=8), "got nope 128, rope 8,"),
+    (dict(nope=24), "got nope 24,"),
+    (dict(vd=48), "v 48$"),
+    (dict(dtype=torch.float16), "bf16 or fp32"),
+])
+def test_kernel_path_refuses_what_it_does_not_take(bad, match):
+    """Off the CPU the wrapper launches the kernels or raises: no fallback
+    to the plain version."""
+    with pytest.raises(ValueError, match=match):
+        mla.mla_attention(*_meta_inputs(**bad))
