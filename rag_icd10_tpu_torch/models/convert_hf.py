@@ -240,7 +240,7 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict:
     return tree
 
 
-def _jax_leaf_order(model) -> List[Tuple[int, bool]]:
+def jax_leaf_order(model) -> List[Tuple[int, bool]]:
     """(index in ``model.parameters()``, transposed) of each parameter in
     the order ``jax.tree_util.tree_leaves`` visits the JAX tree (dict keys
     sorted at every level)."""
@@ -259,7 +259,11 @@ def opt_state_from_jax(leaves, model) -> Dict[int, Dict[str, torch.Tensor]]:
     parameter ``step`` (the Adam count), ``exp_avg`` (``mu``) and
     ``exp_avg_sq`` (``nu``), kernels transposed to ``nn.Linear``'s
     layout."""
-    order = _jax_leaf_order(model)
+    return opt_state_from_leaves(leaves, model, jax_leaf_order(model))
+
+
+def opt_state_from_leaves(leaves, model, order) -> Dict[int, Dict[str, torch.Tensor]]:
+    """``opt_state_from_jax`` with the moments in ``order`` (``jax_leaf_order``'s form)."""
     count, mu, nu = split_adam_leaves(leaves, len(order))
     step = torch.tensor(float(count), dtype=torch.float32)
     params = list(model.parameters())
@@ -279,7 +283,11 @@ def opt_state_to_jax(optimizer, model) -> List[np.ndarray]:
     ``jax.tree_util.tree_leaves`` order: the count, ``mu``, ``nu`` and the
     schedule's count (equal to the Adam count). Parameters not yet stepped
     have zero moments."""
-    order = _jax_leaf_order(model)
+    return opt_state_to_leaves(optimizer, model, jax_leaf_order(model))
+
+
+def opt_state_to_leaves(optimizer, model, order) -> List[np.ndarray]:
+    """``opt_state_to_jax`` with the moments in ``order`` (``jax_leaf_order``'s form)."""
     params = list(model.parameters())
     mu, nu, count = [], [], 0
     for i, transposed in order:

@@ -55,7 +55,7 @@ import json
 import math
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -382,18 +382,34 @@ def load_weights(path: str, arch: DeepseekV3Arch) -> Dict[str, np.ndarray]:
     return out
 
 
-def arch_beside(path: str) -> Optional[DeepseekV3Arch]:
-    """The arch of the ``config.json`` beside checkpoint ``path`` when it
-    names this model type, else None."""
-    config = Path(path).parent / "config.json"
-    if not config.exists():
-        return None
-    cfg = json.loads(config.read_text())
-    return DeepseekV3Arch.from_config(cfg) if cfg.get("model_type") == MODEL_TYPE else None
-
-
 def save_weights(params: Dict[str, np.ndarray], arch: DeepseekV3Arch, path: str) -> None:
     """``params`` (the model's named tensors) as ``path`` (.npz), with the
     arch's ``config.json`` beside it."""
     np.savez(path, **params)
     (Path(path).parent / "config.json").write_text(json.dumps(arch.to_config(), indent=1))
+
+
+# ------------------------------------ the --log-every fields (models/family.py)
+
+
+def moe_load(before: Dict[str, np.ndarray], after: Dict[str, np.ndarray]) -> Tuple[float, float]:
+    """Between two ``metrics.counters("moe.")``: the percent of the routed
+    token slots that went to the experts held here, and the max over the
+    mean of the slots each held expert took, averaged over the layers;
+    nan where no slot was routed."""
+    def delta(key):
+        return after[key] - before.get(key, 0)
+
+    held = [k for k in after if k.startswith("moe.held_slots.")]
+    routed = sum(float(delta("moe.routed_slots." + k.rsplit(".", 1)[1])) for k in held)
+    took = [delta(k).astype(np.float64) for k in held]
+    if not routed or not any(t.sum() for t in took):
+        return float("nan"), float("nan")
+    share = 100.0 * sum(float(t.sum()) for t in took) / routed
+    return share, float(np.mean([t.max() / t.mean() for t in took if t.sum()]))
+
+
+def mla_kernel_calls() -> int:
+    """Forward calls of the latent-attention kernel so far (ops/mla_attention.py)."""
+    return int(metrics.counters("mla.").get("mla.kernel_calls", 0))
+

@@ -5,7 +5,6 @@ from .mesh import Mesh, batch_sharding, make_mesh, param_shardings, train_layout
 from .search import ShardedFlatSearcher
 from .tensor_parallel import TensorParallelBert
 from .train import (
-    contrastive_train_step,
     init_train_state,
     make_sharded_train_step,
     opt_state_shardings,
@@ -19,7 +18,6 @@ __all__ = [
     "train_layout",
     "ShardedFlatSearcher",
     "TensorParallelBert",
-    "contrastive_train_step",
     "init_train_state",
     "make_sharded_train_step",
     "opt_state_shardings",

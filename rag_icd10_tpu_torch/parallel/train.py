@@ -31,15 +31,14 @@ hard negatives and the served level weights folded into the logits.
   gather, the gradient ``all_reduce``) run over the dp group, the ranks
   that hold the same tp shards (parallel/mesh.py ``train_layout``).
 
-- A ``models/deepseek_v3.py`` arch trains through the same single-device
-  step (``SentenceDeepseekV3`` takes ``SentenceBert``'s call); its
-  checkpoint is its own named tensors (``NamedTrainState``).
+- The arch's family (models/family.py) gives the model and the checkpoint
+  layout of its parameters and optimizer leaves (``TrainState.family``).
 
 The forward and backward are plain PyTorch autograd: no Pallas kernel of
 the JAX package has a backward pass (XLA differentiates the model there).
-Both steps record the spans ``train.step.forward`` (to the device,
-embed, any dp gather, loss), ``train.step.backward`` (with any dp
-all-reduce) and ``train.step.update`` (AdamW) in utils/metrics.py.
+Both steps are one body, which records the spans ``train.step.forward``
+(to the device, embed, any dp gather, loss), ``train.step.backward`` (with
+any dp all-reduce) and ``train.step.update`` (AdamW) in utils/metrics.py.
 """
 
 from __future__ import annotations
@@ -54,16 +53,13 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.optim.lr_scheduler import LambdaLR
 
-from ..models import deepseek_v3
-from ..models.bert import BertArch, SentenceBert, init_params
 from ..models.convert_hf import (
     adam_leaves,
-    opt_state_from_jax,
-    opt_state_to_jax,
-    params_from_jax,
-    params_to_jax,
+    opt_state_from_leaves,
+    opt_state_to_leaves,
     split_adam_leaves,
 )
+from ..models.family import BERT, Family, of_arch
 from ..utils.device import resolve_device
 from ..utils.metrics import metrics
 from .mesh import Mesh, PartitionSpec, _spec_for_path, train_layout
@@ -189,9 +185,10 @@ class TrainState:
     """What the JAX step threads through as (params, opt_state): the model
     with its fp32 parameters, its AdamW and the learning-rate schedule."""
 
-    model: torch.nn.Module  # SentenceBert, or models/deepseek_v3.py's SentenceDeepseekV3
+    model: torch.nn.Module
     optimizer: torch.optim.AdamW
     scheduler: LambdaLR
+    family: Family = BERT  # the checkpoint's layout of the params and optimizer leaves
 
     @property
     def device(self) -> torch.device:
@@ -208,20 +205,20 @@ class TrainState:
         return len(list(self.model.parameters()))
 
     def params(self) -> Dict:
-        """The parameters as a JAX-layout tree of fp32 numpy arrays
-        (``save_params``, ``TextEncoder(params=...)``)."""
-        return params_to_jax(self.model.state_dict())
+        """The parameters as fp32 numpy arrays in the family's layout: BERT's
+        JAX-layout tree (``save_params``, ``TextEncoder(params=...)``)."""
+        return self.family.params_of(self.model)
 
     def opt_state_leaves(self) -> List[np.ndarray]:
         """The optimizer state as the leaves of ``optax.adamw(schedule)``
         (the ``leaf_i`` of ``opt_state.npz``)."""
-        return opt_state_to_jax(self.optimizer, self.model)
+        return opt_state_to_leaves(self.optimizer, self.model, self.family.leaf_order(self.model))
 
     def load_opt_state(self, leaves) -> None:
         """Adopt optax-layout optimizer leaves: the moments, the Adam count
         and the schedule's position."""
         sd = self.optimizer.state_dict()
-        sd["state"] = opt_state_from_jax(leaves, self.model)
+        sd["state"] = opt_state_from_leaves(leaves, self.model, self.family.leaf_order(self.model))
         self.optimizer.load_state_dict(sd)
         self._resume_schedule(leaves)
 
@@ -242,43 +239,6 @@ def opt_state_shardings(mesh: Optional[Mesh], params: Dict, opt_state) -> List[P
     split_adam_leaves(opt_state, len(paths))
     specs = [_spec_for_path(path) for path in paths]
     return [()] + specs + specs + [()] * (len(opt_state) - 1 - 2 * len(paths))
-
-
-class NamedTrainState(TrainState):
-    """A ``TrainState`` over a model whose checkpoint is its own named
-    tensors (``models/deepseek_v3.py``), not the JAX layout: ``params``
-    gives its state dict (parameters and buffers) as fp32 numpy arrays,
-    and the optimizer's leaves follow ``model.parameters()``, in optax's
-    leaf layout ([count, *mu, *nu, count])."""
-
-    def params(self) -> Dict[str, np.ndarray]:
-        return {name: t.detach().to("cpu", torch.float32).numpy()
-                for name, t in self.model.state_dict().items()}
-
-    def opt_state_leaves(self) -> List[np.ndarray]:
-        state, count, moments = self.optimizer.state, 0, ([], [])
-        for p in self.model.parameters():
-            st = state.get(p, {})
-            if "step" in st:
-                count = int(float(st["step"]))
-            for key, out in zip(("exp_avg", "exp_avg_sq"), moments):
-                x = st.get(key)
-                out.append((torch.zeros_like(p) if x is None else x).detach()
-                           .to("cpu", torch.float32).numpy())
-        return adam_leaves(count, *moments)
-
-    def load_opt_state(self, leaves) -> None:
-        params = list(self.model.parameters())
-        count, mu, nu = split_adam_leaves(leaves, len(params))
-        step = torch.tensor(float(count), dtype=torch.float32)
-        sd = self.optimizer.state_dict()
-        sd["state"] = {
-            i: {"step": step.clone(),
-                "exp_avg": torch.from_numpy(np.array(m, np.float32)).to(p.device),
-                "exp_avg_sq": torch.from_numpy(np.array(v, np.float32)).to(p.device)}
-            for i, (p, m, v) in enumerate(zip(params, mu, nu))}
-        self.optimizer.load_state_dict(sd)
-        self._resume_schedule(leaves)
 
 
 class TensorParallelTrainState(TrainState):
@@ -328,7 +288,7 @@ class TensorParallelTrainState(TrainState):
 
 
 def init_train_state(
-    arch: Union[BertArch, deepseek_v3.DeepseekV3Arch],
+    arch,
     mesh: Optional[Mesh] = None,
     learning_rate: float = 2e-5,
     seed: int = 0,
@@ -341,43 +301,32 @@ def init_train_state(
     device (``train_layout``): over a ``TensorParallelBert`` holding this
     rank's tp shards where the mesh's tp > 1 (a
     ``TensorParallelTrainState``). ``schedule`` (a callable t -> lr, or a
-    float) replaces the constant ``learning_rate``. ``params`` (a
-    JAX-layout tree) and ``opt_state`` (optax leaves) start from an
+    float) replaces the constant ``learning_rate``. ``params`` (in the
+    family's layout) and ``opt_state`` (optax leaves) start from an
     existing state instead of a seeded init: a warm start or resume must
     survive the dp and tp paths, whose ranks all start from the same host
     values. A dimension that tp splits but does not divide raises
     ``ValueError``.
 
-    A ``DeepseekV3Arch`` trains on ``device`` alone (a ``NamedTrainState``;
-    a mesh raises ``ValueError``); its ``params`` are the model's named
-    tensors (``deepseek_v3.load_weights``)."""
-    if isinstance(arch, deepseek_v3.DeepseekV3Arch):
-        if mesh is not None:
-            raise ValueError(f"{deepseek_v3.MODEL_TYPE} trains on one device: no dp/tp mesh")
-        if params is None:
-            params = deepseek_v3.init_params(arch, seed=seed)
-        with torch.device(resolve_device(device)):
-            model = deepseek_v3.SentenceDeepseekV3(arch)
-        model.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in params.items()})
-        return _with_optimizer(NamedTrainState, model, learning_rate, schedule, opt_state)
+    The arch's family (models/family.py) gives the seeded init and the
+    model; one that trains on one device refuses a mesh (``ValueError``)."""
+    family = of_arch(arch)
+    if mesh is not None and not family.mesh:
+        raise ValueError(f"{family.model_type} trains on one device: no dp/tp mesh")
     layout = train_layout(mesh) if mesh is not None else None
     if params is None:
-        params = init_params(arch, seed=seed)
-    master = dataclasses.replace(arch, param_dtype=torch.float32)
+        params = family.init_params(arch, seed=seed)
     if layout is not None and layout.n_tp > 1:
+        master = dataclasses.replace(arch, param_dtype=torch.float32)
         model, kind = TensorParallelBert(master, layout), TensorParallelTrainState
         model.load_params(params)
     else:
         with torch.device(layout.device if layout is not None else resolve_device(device)):
-            model, kind = SentenceBert(master), TrainState
-        model.load_state_dict(params_from_jax(params))
-    return _with_optimizer(kind, model, learning_rate, schedule, opt_state)
-
-
-def _with_optimizer(kind, model, learning_rate, schedule, opt_state) -> TrainState:
+            model, kind = family.module(arch), TrainState
+        model.load_state_dict(family.state_dict(params))
     model.train()
     optimizer, scheduler = make_optimizer(model, learning_rate if schedule is None else schedule)
-    state = kind(model, optimizer, scheduler)
+    state = kind(model, optimizer, scheduler, family)
     if opt_state is not None:
         state.load_opt_state(opt_state)
     return state
@@ -463,15 +412,27 @@ def make_train_step(temperature: float = 0.05):
     - + "w_b"/"w_h"              -> served level weights in the logits
 
     metrics: {"loss", "accuracy"} as 0-d tensors on the state's device."""
+    return _step(temperature)
+
+
+def _step(temperature: float, rows=None, gather=None, all_reduce=None):
+    """The one step body; the sharded step gives the dp exchanges: ``rows``
+    (batch -> this rank's rows), ``gather`` (its z -> every rank's) and
+    ``all_reduce`` (sums the model's gradients)."""
 
     def train_step(state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
         _check_batch(batch)
+        mine = rows(batch) if rows is not None else None
         with metrics.span("train.step.forward"):
-            b = _to_device(batch, state.device)
-            za, zb, zh = _embed(state.model, b)
-            loss, acc = _loss(b, za, zb, zh, temperature)
+            b = _to_device(batch, state.device, mine)
+            z = _embed(state.model, b)
+            if gather is not None:
+                z = gather(*z)
+            loss, acc = _loss(b, *z, temperature)
         with metrics.span("train.step.backward"):
             loss.backward()
+            if all_reduce is not None:
+                all_reduce(state.model)
         with metrics.span("train.step.update"):
             apply_update(state)
         return {"loss": loss.detach(), "accuracy": acc}
@@ -492,43 +453,31 @@ def make_sharded_train_step(mesh: Mesh, temperature: float = 0.05):
     computes them from the same values (parallel/tensor_parallel.py)."""
     layout = train_layout(mesh)
     mine, n_dp, group = layout.dp_indices, layout.n_dp, layout.dp_group
-    world = dist.get_world_size(group) if group is not None else 1
-    rank = dist.get_rank(group) if group is not None else 0
 
-    def train_step(state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
-        _check_batch(batch)
+    def rows(batch: Dict) -> slice:
         n = batch["a_ids"].shape[0]
         if n % n_dp:
             raise ValueError(f"batch of {n} rows does not split over dp={n_dp}")
         per = n // n_dp
-        rows = slice(mine[0] * per, (mine[-1] + 1) * per)
-        with metrics.span("train.step.forward"):
-            local = _to_device(batch, state.device, rows)
-            za, zb, zh = _embed(state.model, local)
-            if group is not None:
-                za, zb = (_gather_rows(z, group, rank, world) for z in (za, zb))
-                zh = None if zh is None else _gather_rows(zh, group, rank, world)
-            loss, acc = _loss(local, za, zb, zh, temperature)
-        with metrics.span("train.step.backward"):
-            loss.backward()
-            if group is not None:
-                grads = [p.grad for p in state.model.parameters() if p.grad is not None]
-                flat = torch.cat([g.reshape(-1) for g in grads])
-                dist.all_reduce(flat, group=group)
-                offset = 0
-                for g in grads:
-                    g.copy_(flat[offset:offset + g.numel()].view_as(g))
-                    offset += g.numel()
-        with metrics.span("train.step.update"):
-            apply_update(state)
-        return {"loss": loss.detach(), "accuracy": acc}
+        return slice(mine[0] * per, (mine[-1] + 1) * per)
 
-    return train_step
+    if group is None:
+        return _step(temperature, rows)
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
 
+    def gather(*z):
+        return [None if x is None else _gather_rows(x, group, rank, world) for x in z]
 
-def contrastive_train_step(state: TrainState, batch: Dict, temperature: float = 0.05):
-    """Convenience single-device step (tests)."""
-    return make_train_step(temperature)(state, batch)
+    def all_reduce(model: torch.nn.Module) -> None:
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=group)
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+
+    return _step(temperature, rows, gather, all_reduce)
 
 
 # ---------------------------------------------------------------- batches

@@ -37,13 +37,9 @@ Single-device by default; --dp N --tp M runs over a (dp, tp) mesh
 tp (parallel/tensor_parallel.py). --tp alone builds no mesh, as in the
 JAX tool.
 
-The encoder is BERT unless a ``config.json`` beside --init-from names
-``model_type`` ``deepseek_v3``: the encoder is then that decoder
-(models/deepseek_v3.py: e.g. one expert-parallel rank's share of
-Moonlight-16B-A3B), single-device, warm-started from the checkpoint's
-``.npz`` in the published parameter names, and saved the same way with its
-``config.json`` (``opt_state.npz`` follows its parameter order). It is not
-served, so --eval-gate refuses it.
+The encoder's model family is the one the ``config.json`` beside
+--init-from names (models/family.py), BERT where there is none; it forms
+the arch and the checkpoint, and --eval-gate refuses one that is not served.
 
 Each step records spans in the port's registry (utils/metrics.py), with
 the step number as their id: ``train.draw`` (in ``draw_batch``:
@@ -51,11 +47,8 @@ the step number as their id: ``train.draw`` (in ``draw_batch``:
 parallel/train.py: ``train.step.forward``, ``.backward``, ``.update``).
 The --log-every line prints the interval's mean draw, step and wait (the
 step's self time: the host blocked on the device) from them, and the share
-of the tokenizer's piece lookups that hit its memo over the interval; for
-a mixture-of-experts encoder, also the share of the routed token slots its
-held experts took and their max/mean load, and the latent-attention
-kernel's forward calls a step (``metrics.counters``; 0 where the plain
-version ran, on the CPU).
+of the tokenizer's piece lookups that hit its memo over the interval; then
+the family's own fields (``metrics.counters``: a decoder's experts' load).
 """
 
 from __future__ import annotations
@@ -308,30 +301,6 @@ def memo_hit_pct(before: Dict[str, int], after: Dict[str, int]) -> float:
     return 100.0 * hits / looked if looked else float("nan")
 
 
-def moe_load(before: Dict[str, np.ndarray], after: Dict[str, np.ndarray]) -> Tuple[float, float]:
-    """Between two ``metrics.counters("moe.")``: the percent of the routed
-    token slots that went to the experts held here, and the max over the
-    mean of the slots each held expert took, averaged over the layers;
-    nan where no slot was routed."""
-    def delta(key):
-        return after[key] - before.get(key, 0)
-
-    held = [k for k in after if k.startswith("moe.held_slots.")]
-    routed = sum(float(delta("moe.routed_slots." + k.rsplit(".", 1)[1])) for k in held)
-    took = [delta(k).astype(np.float64) for k in held]
-    if not routed or not any(t.sum() for t in took):
-        return float("nan"), float("nan")
-    share = 100.0 * sum(float(t.sum()) for t in took) / routed
-    return share, float(np.mean([t.max() / t.mean() for t in took if t.sum()]))
-
-
-def mla_kernel_calls() -> int:
-    """Forward calls of the latent-attention kernel so far (ops/mla_attention.py)."""
-    from ..utils.metrics import metrics
-
-    return int(metrics.counters("mla.").get("mla.kernel_calls", 0))
-
-
 def select_vocab(explicit_vocab, init_from, build_fresh):
     """Tokenizer vocab for a training run.
 
@@ -463,9 +432,7 @@ def main(argv=None, device: Union[str, torch.device] = "cuda") -> int:
     )
     from ..config import get_config
     from ..data.corpus import load_corpus
-    from ..models import deepseek_v3
-    from ..models.bert import BertArch
-    from ..models.convert_hf import load_params, save_params
+    from ..models.family import beside
     from ..models.tokenizer import WordPieceTokenizer
     from ..parallel.train import (
         init_train_state,
@@ -479,10 +446,10 @@ def main(argv=None, device: Union[str, torch.device] = "cuda") -> int:
 
     # the architecture is the one the starting checkpoint's config.json
     # names; BERT where there is none (or it names BERT)
-    decoder = deepseek_v3.arch_beside(args.init_from) if args.init_from else None
-    if decoder is not None and args.eval_gate is not None:
+    family, model_config = beside(args.init_from)
+    if not family.served and args.eval_gate is not None:
         parser.error(f"--eval-gate embeds the corpus with the served BERT encoder; "
-                     f"a {deepseek_v3.MODEL_TYPE} encoder is not served")
+                     f"a {family.model_type} encoder is not served")
     dev = acquire_device(device, what="encoder training")
     cfg = get_config()
     corpus = load_corpus(cfg.data_path)
@@ -524,29 +491,14 @@ def main(argv=None, device: Union[str, torch.device] = "cuda") -> int:
         ),
     )
 
-    enc_cfg = cfg.encoder
+    arch = family.arch(model_config, cfg.encoder, tok.vocab_size)
+    if tok.vocab_size > arch.vocab_size:
+        raise ValueError(f"the vocabulary has {tok.vocab_size} ids, the checkpoint's "
+                         f"embedding {arch.vocab_size} rows")
     params = None
-    if decoder is not None:
-        if tok.vocab_size > decoder.vocab_size:
-            raise ValueError(f"the vocabulary has {tok.vocab_size} ids, the checkpoint's "
-                             f"embedding {decoder.vocab_size} rows")
-        arch = decoder
-        logger.info("warm-starting a %s (%d layers, experts held %s of %d) from %s",
-                    deepseek_v3.MODEL_TYPE, arch.num_hidden_layers, list(arch.held),
-                    arch.n_routed_experts, args.init_from)
-        params = deepseek_v3.load_weights(args.init_from, arch)
-    else:
-        arch = BertArch(
-            vocab_size=max(enc_cfg.vocab_size, tok.vocab_size),
-            hidden_size=enc_cfg.hidden_size,
-            num_layers=enc_cfg.num_layers,
-            num_heads=enc_cfg.num_heads,
-            intermediate_size=enc_cfg.intermediate_size,
-            max_position_embeddings=enc_cfg.max_position_embeddings,
-        )
-        if args.init_from:
-            logger.info("warm-starting params from %s", args.init_from)
-            params = load_params(args.init_from)
+    if args.init_from:
+        logger.info("warm-starting a %s encoder from %s", family.model_type, args.init_from)
+        params = family.load(args.init_from, arch)
     schedule = warmup_cosine_decay_schedule(
         0.0, args.lr, warmup_steps=min(100, args.steps // 10 + 1),
         decay_steps=args.steps,
@@ -614,10 +566,7 @@ def main(argv=None, device: Union[str, torch.device] = "cuda") -> int:
         leaves = state.opt_state_leaves() if step is not None else None
         if not writer:
             return
-        if decoder is not None:
-            deepseek_v3.save_weights(params, arch, str(out / "params.npz"))
-        else:
-            save_params(params, str(out / "params.npz"))
+        family.save(params, arch, str(out / "params.npz"))
         tok.save_vocab(str(out / "vocab.txt"))
         if step is not None:
             np.savez(
@@ -648,8 +597,7 @@ def main(argv=None, device: Union[str, torch.device] = "cuda") -> int:
     t0 = time.time()
     t_log = time.time_ns()
     memo_log = tok.memo_stats()
-    moe_log = metrics.counters("moe.")
-    mla_log, step_log = (mla_kernel_calls() if decoder is not None else 0), start_step
+    fields, step_log = family.log_reading(), start_step
     losses = []
     for step in range(start_step, args.steps):
         # epoch-clean cursor: consume the tail of the old permutation and
@@ -686,19 +634,13 @@ def main(argv=None, device: Union[str, torch.device] = "cuda") -> int:
             rate = (step + 1 - start_step) / (time.time() - t0)
             draw_ms, step_ms, wait_ms = interval_split_ms(metrics, t_log)
             t_log = time.time_ns()
-            memo = tok.memo_stats()
-            line = ("step %d/%d loss=%.4f acc=%.3f (%.2f steps/s; draw %.1f ms, "
-                    "step %.1f ms, wait %.1f ms; piece memo %.1f%% hits)")
-            values = [step + 1, args.steps, float(m["loss"]), float(m["accuracy"]), rate,
-                      draw_ms, step_ms, wait_ms, memo_hit_pct(memo_log, memo)]
-            if decoder is not None:  # reads the expert counters off the device
-                moe, mla_calls = metrics.counters("moe."), mla_kernel_calls()
-                line += ("; experts held %.1f%% of slots, load max/mean %.2f; "
-                         "MLA kernel %.1f calls a step")
-                values += [*moe_load(moe_log, moe), (mla_calls - mla_log) / (step + 1 - step_log)]
-                moe_log, mla_log, step_log = moe, mla_calls, step + 1
-            logger.info(line, *values)
-            memo_log = memo
+            memo, now = tok.memo_stats(), family.log_reading()
+            logger.info("step %d/%d loss=%.4f acc=%.3f (%.2f steps/s; draw %.1f ms, "
+                        "step %.1f ms, wait %.1f ms; piece memo %.1f%% hits)" + family.log_text,
+                        step + 1, args.steps, float(m["loss"]), float(m["accuracy"]), rate,
+                        draw_ms, step_ms, wait_ms, memo_hit_pct(memo_log, memo),
+                        *family.log_values(fields, now, step + 1 - step_log))
+            memo_log, fields, step_log = memo, now, step + 1
         if args.save_every and (step + 1) % args.save_every == 0:
             save_checkpoint(state, step + 1)
             logger.info("checkpoint saved at step %d -> %s", step + 1, out)
@@ -709,7 +651,7 @@ def main(argv=None, device: Union[str, torch.device] = "cuda") -> int:
     )
     logger.info("saved trained params -> %s/params.npz (final loss %.4f "
                 "over %d steps)", out, final_loss, len(losses))
-    if decoder is None:
+    if family.served:
         print(f"export EMBEDDING_WEIGHTS_PATH={out}/params.npz")
         print(f"export EMBEDDING_VOCAB_PATH={out}/vocab.txt")
     if args.eval_gate is not None:

@@ -41,6 +41,7 @@ from deepseek_v3_routing import held_to_reference
 from rag_icd10_tpu_torch import config as tconfig
 from rag_icd10_tpu_torch.data.corpus import synthetic_corpus
 from rag_icd10_tpu_torch.models import deepseek_v3 as dv
+from rag_icd10_tpu_torch.models import family as model_family
 from rag_icd10_tpu_torch.models.tokenizer import WordPieceTokenizer
 from rag_icd10_tpu_torch.ops import mla_attention as mla
 from rag_icd10_tpu_torch.parallel import train as ptrain
@@ -377,7 +378,8 @@ def test_cli_trains_a_decoder_saves_and_reloads(decoder_cli):
     assert rc == 0
     assert {"params.npz", "config.json", "vocab.txt", "opt_state.npz"} <= {
         p.name for p in out.iterdir()}
-    again = dv.arch_beside(str(out / "params.npz"))
+    family, config = model_family.beside(str(out / "params.npz"))
+    again = family.arch(config, None, 0)
     assert again == dataclasses.replace(arch, compute_dtype=torch.bfloat16)
     saved = dv.load_weights(str(out / "params.npz"), again)
     assert set(saved) == set(start)
@@ -396,6 +398,40 @@ def test_cli_trains_a_decoder_saves_and_reloads(decoder_cli):
     rc = ttool.main(ARGS + ["--steps", "5", "--init-from", str(out / "params.npz"),
                             "--out", str(res), "--save-every", "0"], device="cpu")
     assert rc == 0 and int(np.load(res / "opt_state.npz")["leaf_0"]) == 5
+
+
+def test_cli_log_line_reads_the_experts_and_the_kernel(decoder_cli, caplog):
+    """The --log-every line of a decoder carries its own fields after the
+    BERT line's: the held experts' share and load, and the latent-attention
+    kernel's calls a step (0 on the CPU, where the plain version runs)."""
+    tmp, _, _ = decoder_cli
+    with caplog.at_level("INFO", logger="rag_icd10_tpu_torch.train"):
+        rc = ttool.main(ARGS + ["--steps", "2", "--init-from", str(tmp / "init" / "params.npz"),
+                                "--params-only", "--out", str(tmp / "run"),
+                                "--save-every", "0"], device="cpu")
+    assert rc == 0
+    lines = [r for r in caplog.records if str(r.msg).startswith("step %d/%d loss=")]
+    assert len(lines) == 2
+    for r in lines:
+        text = r.getMessage()
+        assert "piece memo" in text and "experts held" in text and "load max/mean" in text
+        assert "MLA kernel 0.0 calls a step" in text
+        share, load, calls = r.args[-3:]
+        assert 0 < share < 100 and load >= 1 and calls == 0  # 4 of 16 experts held
+
+
+def test_cli_refuses_a_vocabulary_wider_than_the_embedding(decoder_cli):
+    tmp, arch, params = decoder_cli
+    narrow = dataclasses.replace(arch, vocab_size=arch.vocab_size - 6)
+    params["model.embed_tokens.weight"] = params["model.embed_tokens.weight"][:-6]
+    init = tmp / "narrow"
+    init.mkdir()
+    (init / "vocab.txt").write_text((tmp / "init" / "vocab.txt").read_text(encoding="utf-8"),
+                                    encoding="utf-8")
+    dv.save_weights(params, narrow, str(init / "params.npz"))
+    with pytest.raises(ValueError, match=f"{arch.vocab_size - 5} ids"):
+        ttool.main(ARGS + ["--steps", "1", "--init-from", str(init / "params.npz"),
+                           "--out", str(tmp / "x")], device="cpu")
 
 
 def test_cli_eval_gate_refuses_a_decoder(decoder_cli):

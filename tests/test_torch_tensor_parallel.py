@@ -228,7 +228,7 @@ def test_tp_warm_start_keeps_the_given_state():
     arch = BertArch(**TINY, compute_dtype=torch.float32)
     host, fresh = init_params(arch, seed=123), init_params(arch, seed=0)
     warm = init_train_state(arch, device="cpu", params=host, schedule=LR)
-    ttrain.contrastive_train_step(warm, _batch(8))
+    ttrain.make_train_step()(warm, _batch(8))
     params, leaves = warm.params(), warm.opt_state_leaves()
     mesh = _tp_mesh(2, 4)
     state = init_train_state(arch, mesh=mesh, seed=0, schedule=LR, params=params,

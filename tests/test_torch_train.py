@@ -60,7 +60,6 @@ from rag_icd10_tpu_torch.models.convert_hf import (
 )
 from rag_icd10_tpu_torch.models.tokenizer import WordPieceTokenizer
 from rag_icd10_tpu_torch.parallel import (
-    contrastive_train_step,
     init_train_state,
     make_mesh,
     param_shardings,
@@ -388,7 +387,7 @@ def test_hard_negatives_need_group_ids(bad):
         batch.pop("h_group")
         match = "without h_group"
     with pytest.raises(ValueError, match=match):
-        contrastive_train_step(state, batch)
+        ttrain.make_train_step()(state, batch)
 
 
 # -------------------------------------------------------- checkpoint carry
@@ -506,7 +505,7 @@ def test_sharded_init_keeps_warm_started_state():
     host = init_params(tarch, seed=123)
     fresh = init_params(tarch, seed=0)
     warm = init_train_state(tarch, device="cpu", params=host, schedule=LR)
-    contrastive_train_step(warm, _batch(8))
+    ttrain.make_train_step()(warm, _batch(8))
     leaves = warm.opt_state_leaves()
     mesh = make_mesh(n_devices=1, dp=1, tp=1, devices=["cpu"], distributed=False)
     state = init_train_state(tarch, mesh=mesh, seed=0, schedule=LR,
