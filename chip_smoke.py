@@ -152,15 +152,30 @@
    beside their bound (each call's inputs read once and outputs written
    once at 3.35 TB/s, or its causal products at 989 TFLOP/s, the larger),
    the plain version and F.scaled_dot_product_attention on the same q, k
-   and v (library_ms; a yardstick the port never calls); then one
-   forward and backward of the encoder at Moonlight's widths in the
-   cell's two shapes, whose kernel launches (30) and forward calls (10)
-   are the entry's launches_by_path. Alone:
+   and v (library_ms; a yardstick the port never calls). Alone:
    python3 -c 'import chip_smoke; chip_smoke.mla_phase()'.
-11. Prints one JSON line describing each kernel (K1, K2 and K5 with their
+11. M2 phase (ops/rms_norm.py, ops/csrc/rms_norm.cu): the residual add +
+   RMSNorm kernels at the Moonlight cell's T = 24,576 positions a call, at
+   four sites (hidden with a bf16 branch and two bf16 consumers; an expert
+   layer's input, a bf16 branch and one fp32 output for the router, the
+   gather and the shared experts; hidden after an expert layer, an fp32
+   branch and two bf16 copies; the bf16 latent read in place, one bf16
+   consumer), held against the plain chain (x_new bit for bit, outputs and
+   gradients within the card tests' limits) and timed forward and
+   forward + backward on the card behind a sleeping kernel (each kernel's
+   share by torch.profiler) beside their bound (each input read once and
+   each output written once at 3.35 TB/s), the plain chain and
+   F.rms_norm on x_new (library; a yardstick the port never calls).
+   Alone: python3 -c 'import chip_smoke; chip_smoke.norm_phase()'.
+12. One forward and backward of the encoder at Moonlight's widths in the
+   cell's two shapes: the MLA kernels' launches (30) and forward calls
+   (10), the add + RMSNorm kernels' launches (96) and forward calls (32),
+   the entries' launches_by_path. Alone:
+   python3 -c 'import chip_smoke; chip_smoke.decoder_step_launches()'.
+13. Prints one JSON line describing each kernel (K1, K2 and K5 with their
    sharded launches and rows; K1 with its eval_gate, eval_gate_tp and
-   ner_train launches; the MLA kernels), and as the last line
-   {"ok": true, "device": {...}}.
+   ner_train launches; the MLA kernels; the add + RMSNorm kernels), and as
+   the last line {"ok": true, "device": {...}}.
 
 Any failed check raises: the script then exits non-zero. It also exits
 non-zero, printing no result, when CUDA is unavailable or when the
@@ -3069,17 +3084,150 @@ def mla_phase() -> list:
     return rows
 
 
-def mla_train_step_launches() -> dict:
-    """The MLA kernels' launches in one step of the Moonlight cell's shape:
-    the encoder at Moonlight-16B-A3B's widths (5 layers, experts 0-7 held,
-    bf16 over fp32 masters), a forward of 512 rows of 48 positions and one
-    of 256 rows of 96, one backward through both. The counters' rise is
-    what the main path launched: 10 forward calls, 30 launches."""
+NORM_SHAPE = (512, 48)  # the Moonlight cell's first forward call: T = 24,576 positions
+NORM_SITES = {  # name: (width, x dtype, branch dtype, outputs, x read in place from 576 columns)
+    "hidden": (2048, "float32", "bfloat16", ("bfloat16", "bfloat16"), False),
+    "expert_inputs": (2048, "float32", "bfloat16", ("float32",), False),
+    "after_experts": (2048, "float32", "float32", ("bfloat16", "bfloat16"), False),
+    "latent": (512, "bfloat16", None, ("bfloat16",), True),
+}
+
+
+def norm_tolerance(name: str, dtype) -> float:
+    """The card tests' limits (tests/test_torch_cuda_rms_norm.py), max
+    |difference| over max |plain|: x_new bit for bit, fp32 y 2e-6 and fp32
+    gradients 2e-5 (sums in another order), a bf16 result one bf16 step."""
+    import torch
+
+    if name == "x_new":
+        return 0.0
+    if dtype == torch.bfloat16:
+        return 2 ** -7
+    return 2e-6 if name.startswith("y") else 2e-5
+
+
+def norm_bytes(width: int, x_dt, branch_dt, out) -> tuple:
+    """Bytes a call moves at NORM_SHAPE's rows, forward and backward: each input
+    read once and each output written once. Forward: x, the branch; x_new
+    (where there is a branch), each y, rstd. Backward: the row it normed
+    (x_new, or x), rstd, each y's gradient, x_new's; dx, the branch's
+    gradient, the weight's."""
+    t = NORM_SHAPE[0] * NORM_SHAPE[1]
+    el = t * width
+    size = {"float32": 4, "bfloat16": 2}
+    xb, bb = size[x_dt], size[branch_dt] if branch_dt else 0
+    ys = sum(size[dt] for dt in out)
+    fwd = el * (xb + bb + (4 if branch_dt else 0) + ys) + t * 4 + width * 4
+    row = 4 if branch_dt else xb
+    bwd = el * (row + ys + (4 if branch_dt else 0) + xb + bb) + t * 4 + 2 * width * 4
+    return fwd, bwd
+
+
+def norm_phase() -> list:
+    """The add + RMSNorm kernels at the Moonlight cell's sites and row
+    count: held against the plain chain, timed beside their bound, the
+    plain chain and F.rms_norm."""
+    import torch
+    import torch.nn.functional as F
+
+    sys.path.insert(0, str(ROOT))
+    from rag_icd10_tpu_torch.ops import rms_norm
+
+    rows = []
+    for site, (width, x_dt, b_dt, out_names, in_place) in NORM_SITES.items():
+        gen = torch.Generator(device=DEVICE).manual_seed(width)
+        out = tuple(getattr(torch, dt) for dt in out_names)
+
+        def normal(*shape):
+            return torch.randn(*shape, generator=gen, device=DEVICE)
+
+        wide = normal(*NORM_SHAPE, width + 64 if in_place else width).to(getattr(torch, x_dt))
+        wide.requires_grad_(True)
+        x = wide[..., :width]
+        branch = None if b_dt is None else normal(*NORM_SHAPE, width).to(getattr(torch, b_dt))
+        if branch is not None:
+            branch.requires_grad_(True)
+        weight = (1.0 + 0.1 * normal(width)).requires_grad_(True)
+        dys = [normal(*NORM_SHAPE, width).to(dt) for dt in out]
+        d_xnew = normal(*NORM_SHAPE, width)
+        leaves = [t for t in (wide, branch, weight) if t is not None]
+
+        def step(fn, backward=True):
+            for t in leaves:
+                t.grad = None
+            x_new, ys = fn(x, branch, weight, 1e-5, out)
+            if backward:
+                outs, grads = list(ys), list(dys)
+                if branch is not None:
+                    outs, grads = [x_new, *outs], [d_xnew, *grads]
+                torch.autograd.backward(outs, grads)
+            return x_new, ys
+
+        x_new, ys = step(rms_norm.add_rms_norm)
+        got = [x_new.detach(), *(t.detach() for t in ys)]
+        got_g = [t.grad.clone() for t in leaves]
+        x_new, ys = step(rms_norm.add_rms_norm_reference)
+        want = [x_new.detach(), *(t.detach() for t in ys)]
+        names = ["x_new", *(f"y{i}" for i in range(len(out)))]
+        pairs = list(zip(names, got, want))
+        pairs += zip(("dx", "dbranch", "dweight") if branch is not None else ("dx", "dweight"),
+                     got_g, (t.grad for t in leaves))
+        errs = {name: max_err(a.float(), b.float()) / b.float().abs().max().item()
+                for name, a, b in pairs}
+        check(all(errs[name] <= norm_tolerance(name, a.dtype) for name, a, _ in pairs),
+              f"add + RMSNorm kernel against the plain chain at {site}: {errs}")
+
+        with torch.no_grad():  # the library yardstick on x_new, fp32
+            x_new = x.detach().float() + (0 if branch is None else branch.detach().float())
+        lx = x_new.clone().requires_grad_(True)
+        lw = weight.detach().clone().requires_grad_(True)
+        d_y = sum(dy.float() for dy in dys)
+
+        def library(backward=True):
+            lx.grad = lw.grad = None
+            y = F.rms_norm(lx, (width,), lw, 1e-5)
+            if backward:
+                y.backward(d_y)
+
+        fwd_bytes, bwd_bytes = norm_bytes(width, x_dt, b_dt, out_names)
+        row = {
+            "site": site, "T": NORM_SHAPE[0] * NORM_SHAPE[1], "width": width, "x": x_dt,
+            "branch": b_dt, "outputs": list(out_names), "max_rel_err": errs,
+            "fwd_device_ms": device_ms(lambda: step(rms_norm.add_rms_norm, backward=False)),
+            "device_ms": device_ms(lambda: step(rms_norm.add_rms_norm)),
+            "host_ms": host_ms(lambda: step(rms_norm.add_rms_norm)),
+            "fwd_bound_ms": fwd_bytes / H100_BYTES_PER_S * 1e3,
+            "bound_ms": (fwd_bytes + bwd_bytes) / H100_BYTES_PER_S * 1e3,
+            "plain_fwd_device_ms": device_ms(
+                lambda: step(rms_norm.add_rms_norm_reference, backward=False)),
+            "plain_device_ms": device_ms(lambda: step(rms_norm.add_rms_norm_reference)),
+            "library_fwd_device_ms": device_ms(lambda: library(backward=False)),
+            "library_device_ms": device_ms(library),
+            "kernels": kernel_split(lambda: step(rms_norm.add_rms_norm)),
+        }
+        row["ratio"] = row["device_ms"] / row["bound_ms"]
+        row["fwd_ratio"] = row["fwd_device_ms"] / row["fwd_bound_ms"]
+        rows.append(row)
+        print("M2 " + json.dumps(row), flush=True)
+        del wide, x, branch, weight, dys, d_xnew, leaves, got, got_g, want, lx, lw, d_y
+        torch.cuda.empty_cache()
+    return rows
+
+
+def decoder_step_launches() -> dict:
+    """The MLA and add + RMSNorm kernels' launches in one step of the
+    Moonlight cell's shape: the encoder at Moonlight-16B-A3B's widths (5
+    layers, experts 0-7 held, bf16 over fp32 masters), a forward of 512
+    rows of 48 positions and one of 256 rows of 96, one backward through
+    both. The counters' rise is what the main path launched: MLA 10
+    forward calls, 30 launches; add + RMSNorm 32 forward calls (11
+    hidden-width sites and 5 latent a call), 96 launches."""
     import torch
 
     sys.path.insert(0, str(ROOT))
     from rag_icd10_tpu_torch.models import deepseek_v3 as dv
     from rag_icd10_tpu_torch.ops import mla_attention as mla
+    from rag_icd10_tpu_torch.ops import rms_norm
     from rag_icd10_tpu_torch.utils.metrics import metrics
 
     config = dict(
@@ -3095,19 +3243,24 @@ def mla_train_step_launches() -> dict:
     with torch.device(DEVICE):
         model = dv.SentenceDeepseekV3(arch)
     gen = torch.Generator(device=DEVICE).manual_seed(5)
-    mla.mla_attention.launches = 0
-    calls = int(metrics.counters("mla.").get("mla.kernel_calls", 0))
+    mla.mla_attention.launches = rms_norm.add_rms_norm.launches = 0
+    counters = metrics.counters()
+    calls = {k: int(counters.get(f"{k}.kernel_calls", 0)) for k in ("mla", "norm")}
     loss = 0.0
     for b, s in MLA_SHAPES:
         ids = torch.randint(1, arch.vocab_size, (b, s), generator=gen, device=DEVICE)
         loss = loss + model(ids, torch.ones_like(ids)).float().pow(2).sum()
     loss.backward()
     torch.cuda.synchronize()
-    found = {"launches": mla.mla_attention.launches,
-             "kernel_calls": int(metrics.counters("mla.").get("mla.kernel_calls", 0)) - calls}
-    check(found == {"launches": 30, "kernel_calls": 10},
-          f"one Moonlight-shaped step launched the MLA kernels {found}")
-    print("MLA train step " + json.dumps(found), flush=True)
+    counters = metrics.counters()
+    found = {k: {"launches": launches,
+                 "kernel_calls": int(counters.get(f"{k}.kernel_calls", 0)) - calls[k]}
+             for k, launches in (("mla", mla.mla_attention.launches),
+                                 ("norm", rms_norm.add_rms_norm.launches))}
+    check(found == {"mla": {"launches": 30, "kernel_calls": 10},
+                    "norm": {"launches": 96, "kernel_calls": 32}},
+          f"one Moonlight-shaped step launched the MLA and add + RMSNorm kernels {found}")
+    print("decoder train step " + json.dumps(found), flush=True)
     del model, loss
     torch.cuda.empty_cache()
     return found
@@ -3184,7 +3337,8 @@ def main() -> int:
                         ("card_vs_cpu", "step", "tool", "serve", "phase_s")}
     main_path["K1"]["launches_by_path"]["ner_train"] = ner_train["serve"]["k1_launches"]
     mla_rows = mla_phase()
-    mla_step = mla_train_step_launches()
+    norm_rows = norm_phase()
+    decoder_step = decoder_step_launches()
     check(jax_before or sys.modules.get("jax") is None, "the port imported JAX")
     check(not any(m == "rag_icd10_tpu" or m.startswith("rag_icd10_tpu.")
                   for m in sys.modules), "the port imported the JAX package")
@@ -3225,7 +3379,15 @@ def main() -> int:
         "source": "rag_icd10_tpu_torch/ops/csrc/mla_attention.cu",
         "replaces": None,
         "main_shapes": mla_rows,
-        "launches_by_path": {"moonlight_train_step": mla_step},
+        "launches_by_path": {"moonlight_train_step": decoder_step["mla"]},
+    })
+    kernels.append({
+        "name": "add_rms_norm (rms_norm_fwd, rms_norm_bwd, rms_norm_dw)",
+        "route": "cuda",
+        "source": "rag_icd10_tpu_torch/ops/csrc/rms_norm.cu",
+        "replaces": None,
+        "main_shapes": norm_rows,
+        "launches_by_path": {"moonlight_train_step": decoder_step["norm"]},
     })
     e2e["sketch_1M"] = sketch_large
     print("e2e " + json.dumps(e2e), flush=True)

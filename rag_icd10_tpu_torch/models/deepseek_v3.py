@@ -37,12 +37,26 @@ weights, every projection and expert product in ``compute_dtype`` (bf16);
 the residual stream, RMSNorm, RoPE, attention logits and softmax, the
 router and the pooling in fp32.
 
+Each RMSNorm is one call of ``ops/rms_norm.py`` with the residual add
+before it (a hand-written kernel on the card, its plain version on the
+CPU): layer i's MLP output is added in layer i+1's ``input_layernorm``
+(the last in the final ``norm``), its attention output in its
+``post_attention_layernorm``, and the norm hands its output to each
+consumer in that consumer's dtype (the ``inputs`` of ``LatentAttention``,
+``SwiGLU`` and ``ExpertShare``): a bf16 copy for each of the attention's
+two projections and the dense MLP's gate and up, rounded where their casts
+rounded it, and fp32 for an expert layer, whose router, gather and shared
+experts read it as they did before.
+
 Spans (utils/metrics.py), nested under whatever span the caller holds:
-``mla`` (each layer's attention), ``moe.route`` (router, top-k, weights,
+``mla`` (each layer's input norm, with the previous layer's MLP output
+added in it, and its attention), ``moe.route`` (router, top-k, weights,
 dispatch order), ``moe.experts`` (gather, the held experts' products,
 combine), ``moe.shared``. Counters, added on the device with no host read:
 ``moe.held_slots.<layer>`` (token slots routed to each held expert) and
-``moe.routed_slots.<layer>`` (slots routed anywhere: tokens x top-k).
+``moe.routed_slots.<layer>`` (slots routed anywhere: tokens x top-k); on the
+host, ``mla.kernel_calls`` and ``norm.kernel_calls`` (the kernels' forward
+calls).
 
 Weights are one ``.npz`` in the published checkpoint's parameter names
 (``model.layers.{i}.mlp.experts.{j}.gate_proj.weight``, ...), with the
@@ -55,7 +69,7 @@ import json
 import math
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -63,6 +77,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.mla_attention import mla_attention
+from ..ops.rms_norm import add_rms_norm
 from ..utils.metrics import metrics
 from .bert import mean_pool_normalize
 
@@ -164,16 +179,19 @@ class Linear(nn.Linear):
 
 
 class RMSNorm(nn.Module):
-    """fp32 in, fp32 out, fp32 weight."""
+    """fp32 weight; the residual add before it fused in (ops/rms_norm.py)."""
 
     def __init__(self, n: int, eps: float):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(n, dtype=torch.float32))
         self.eps = eps
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()
-        return self.weight * (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + self.eps))
+    def forward(self, x: torch.Tensor, branch: Optional[torch.Tensor] = None,
+                out: Sequence[torch.dtype] = (torch.float32,)
+                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+        """``x + branch.float()`` (``x`` where there is no branch), and the
+        norm of it computed in fp32, in each dtype of ``out`` (one a consumer)."""
+        return add_rms_norm(x, branch, self.weight, self.eps, out)
 
 
 def rope_tables(seq: int, dim: int, theta: float, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -198,13 +216,18 @@ class LatentAttention(nn.Module):
         self.kv_b_proj = Linear(a.kv_lora_rank,
                                 a.num_attention_heads * (a.qk_nope_head_dim + a.v_head_dim), a)
         self.o_proj = Linear(a.num_attention_heads * a.v_head_dim, h, a)
+        self.inputs = (a.compute_dtype,) * 2  # q_proj's and kv_a_proj_with_mqa's
 
-    def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    def forward(self, x_q: torch.Tensor, x_kv: torch.Tensor, cos: torch.Tensor,
+                sin: torch.Tensor) -> torch.Tensor:
+        """``x_q``, ``x_kv``: ``q_proj``'s and ``kv_a_proj_with_mqa``'s own
+        copies of the input (``inputs``)."""
         a = self.arch
-        q = self.q_proj(x)
-        latent, k_pe = self.kv_a_proj_with_mqa(x).split([a.kv_lora_rank, a.qk_rope_head_dim],
-                                                         dim=-1)
-        kv = self.kv_b_proj(self.kv_a_layernorm(latent))
+        q = self.q_proj(x_q)
+        latent, k_pe = self.kv_a_proj_with_mqa(x_kv).split([a.kv_lora_rank, a.qk_rope_head_dim],
+                                                            dim=-1)
+        _, (latent,) = self.kv_a_layernorm(latent, out=(a.compute_dtype,))
+        kv = self.kv_b_proj(latent)
         return self.o_proj(mla_attention(q, kv, k_pe, cos, sin, a.num_attention_heads))
 
 
@@ -217,9 +240,13 @@ class SwiGLU(nn.Module):
         self.gate_proj = Linear(h, width, arch)
         self.up_proj = Linear(h, width, arch)
         self.down_proj = Linear(width, h, arch)
+        self.inputs = (arch.compute_dtype,) * 2  # gate_proj's and up_proj's
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+    def forward(self, x: torch.Tensor, x_up: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``x_up``: ``up_proj``'s own copy of the input, where it has one
+        (``inputs``: the dense MLP's, from its norm); else ``x`` (the held
+        and shared experts)."""
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x if x_up is None else x_up))
 
 
 class Router(nn.Module):
@@ -264,6 +291,8 @@ class ExpertShare(nn.Module):
         local = torch.full((arch.n_routed_experts,), len(arch.held), dtype=torch.long)
         local[list(arch.held)] = torch.arange(len(arch.held))
         self.register_buffer("local_index", local, persistent=False)
+        # the router, the experts' gather and the shared experts (which cast it) read fp32
+        self.inputs = (torch.float32,)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         a, n_held, k = self.arch, len(self.arch.held), self.arch.num_experts_per_tok
@@ -298,10 +327,16 @@ class DecoderLayer(nn.Module):
         self.input_layernorm = RMSNorm(h, eps)
         self.post_attention_layernorm = RMSNorm(h, eps)
 
-    def forward(self, x, cos, sin) -> torch.Tensor:
+    def forward(self, x, branch, cos, sin) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``x``: the fp32 residual stream before ``branch``, the previous
+        layer's MLP output (None before the first layer), is added. Returns
+        the stream with ``branch`` and the attention's output added, and the
+        MLP's output, which the next norm adds."""
         with metrics.span("mla"):
-            x = x + self.self_attn(self.input_layernorm(x), cos, sin).float()
-        return x + self.mlp(self.post_attention_layernorm(x)).float()
+            x, h = self.input_layernorm(x, branch, self.self_attn.inputs)
+            branch = self.self_attn(*h, cos, sin)
+        x, h = self.post_attention_layernorm(x, branch, self.mlp.inputs)
+        return x, self.mlp(*h)
 
 
 class DeepseekV3Model(nn.Module):
@@ -319,10 +354,10 @@ class DeepseekV3Model(nn.Module):
         a, s = self.arch, input_ids.shape[1]
         dev = input_ids.device
         cos, sin = rope_tables(s, a.qk_rope_head_dim, a.rope_theta, dev)
-        x = self.embed_tokens(input_ids)
+        x, branch = self.embed_tokens(input_ids), None
         for layer in self.layers:
-            x = layer(x, cos, sin)
-        return self.norm(x)
+            x, branch = layer(x, branch, cos, sin)
+        return self.norm(x, branch)[1][0]
 
 
 class SentenceDeepseekV3(nn.Module):
@@ -413,3 +448,7 @@ def mla_kernel_calls() -> int:
     """Forward calls of the latent-attention kernel so far (ops/mla_attention.py)."""
     return int(metrics.counters("mla.").get("mla.kernel_calls", 0))
 
+
+def norm_kernel_calls() -> int:
+    """Forward calls of the add + RMSNorm kernel so far (ops/rms_norm.py)."""
+    return int(metrics.counters("norm.").get("norm.kernel_calls", 0))

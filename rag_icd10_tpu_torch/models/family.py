@@ -60,10 +60,13 @@ FAMILIES: Dict[str, Family] = {f.model_type: f for f in (BERT, Family(
                              for k, t in model.state_dict().items()},
     leaf_order=lambda model: [(i, False) for i, _ in enumerate(model.parameters())],
     load=dv.load_weights, save=dv.save_weights,
-    log_text="; experts held %.1f%% of slots, load max/mean %.2f; MLA kernel %.1f calls a step",
-    log_reading=lambda: (metrics.counters("moe."), dv.mla_kernel_calls()),  # waits for the device
+    log_text="; experts held %.1f%% of slots, load max/mean %.2f; MLA kernel %.1f calls a step; "
+             "norm kernel %.1f calls a step",
+    log_reading=lambda: (metrics.counters("moe."), dv.mla_kernel_calls(),  # waits for the device
+                         dv.norm_kernel_calls()),
     log_values=lambda before, after, steps: [*dv.moe_load(before[0], after[0]),
-                                             (after[1] - before[1]) / steps]))}
+                                             *((a - b) / steps for a, b in zip(after[1:],
+                                                                               before[1:]))]))}
 
 
 def beside(path: Optional[str]) -> Tuple[Family, Dict]:

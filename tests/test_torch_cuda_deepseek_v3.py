@@ -24,6 +24,15 @@ loss a fixed random projection of the embeddings:
   a token whose sixth and seventh expert scores lie within that rounding
   goes to another expert than in fp32, and with 8 rows an expert takes a
   few dozen tokens: one such token moves its gradient by several percent.
+
+And one step of the Moonlight cell's shape (512 rows of 48 positions, 256
+of 96), bf16, against the same model with the plain add + RMSNorm chain
+(ops/rms_norm.py add_rms_norm_reference) on the same card, its routers held
+to the plain run's choices: each row's embedding within 5e-2 (L2) and every
+leaf's gradient within 0.1, as above; the loss within 1e-2 of the sum of
+its terms' magnitudes (the CPU tests' bf16 loss tolerance); and the add +
+RMSNorm kernel called 32 times (2 calls x (11 hidden-width sites + 5
+latent)).
 """
 
 import contextlib
@@ -35,6 +44,8 @@ import torch
 import reference_deepseek_v3 as ref
 from deepseek_v3_routing import held_to_reference
 from rag_icd10_tpu_torch.models import deepseek_v3 as dv
+from rag_icd10_tpu_torch.ops import rms_norm
+from rag_icd10_tpu_torch.utils.metrics import metrics
 
 pytestmark = pytest.mark.gpu
 
@@ -111,3 +122,58 @@ def test_forward_and_backward_at_published_widths(cuda, compute):
         assert emb_err < 1e-4 and gaps[worst] < 1e-3
     else:
         assert emb_err < 5e-2 and gaps[worst] < 0.1
+
+
+def test_moonlight_shaped_step_against_the_plain_chain(cuda, monkeypatch):
+    arch = dv.DeepseekV3Arch.from_config(MOONLIGHT, compute_dtype=torch.bfloat16)
+    with torch.device(cuda):
+        model = dv.SentenceDeepseekV3(arch)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in _params(arch).items()})
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    calls = [torch.randint(1, arch.vocab_size, (b, s), generator=gen, device=cuda)
+             for b, s in ((512, 48), (256, 96))]
+    targets = [torch.randn(ids.shape[0], arch.hidden_size, generator=gen, device=cuda)
+               for ids in calls]
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        zs = [model(ids, torch.ones_like(ids)) for ids in calls]
+        terms = torch.cat([(z * t).sum(-1) for z, t in zip(zs, targets)])
+        terms.sum().backward()
+        return terms.detach(), torch.cat(zs).detach(), {
+            n: torch.zeros_like(p) if p.grad is None else p.grad.clone()
+            for n, p in model.named_parameters()}
+
+    picks, forward = [], dv.Router.forward
+
+    def record(self, x):
+        out = forward(self, x)
+        picks.append(out[0])
+        return out
+
+    def replay(self, x):
+        idx = picks.pop(0)
+        scores = torch.sigmoid(torch.nn.functional.linear(x.float(), self.weight.float()))
+        w = scores.gather(1, idx)
+        return idx, w / (w.sum(-1, keepdim=True) + 1e-20) * self.arch.routed_scaling_factor
+
+    with monkeypatch.context() as m:
+        m.setattr(dv, "add_rms_norm", rms_norm.add_rms_norm_reference)
+        m.setattr(dv.Router, "forward", record)
+        terms_p, z_p, grads_p = step()
+    before = int(metrics.counters("norm.").get("norm.kernel_calls", 0))
+    with monkeypatch.context() as m:
+        m.setattr(dv.Router, "forward", replay)
+        terms_k, z_k, grads_k = step()
+    torch.cuda.synchronize()
+    assert int(metrics.counters("norm.").get("norm.kernel_calls", 0)) - before == 32
+    assert not picks
+    norms = {k: float(g.norm()) for k, g in grads_p.items()}
+    med = float(np.median(list(norms.values())))
+    gaps = {k: float((grads_k[k] - grads_p[k]).norm()) / max(norms[k], med) for k in grads_p}
+    worst = max(gaps, key=gaps.get)
+    emb_err = float(torch.linalg.vector_norm(z_k - z_p, dim=-1).max())
+    loss_gap = abs(float(terms_k.sum() - terms_p.sum())) / float(terms_p.abs().sum())
+    print(f"Moonlight-shaped step, kernel vs plain chain: embeddings {emb_err:.3g}, loss "
+          f"{loss_gap:.3g}, widest gradient gap {gaps[worst]:.3g} ({worst})")
+    assert emb_err < 5e-2 and loss_gap < 1e-2 and gaps[worst] < 0.1

@@ -30,6 +30,7 @@ import contextlib
 import dataclasses
 import json
 import math
+from types import SimpleNamespace
 from unittest import mock
 
 import numpy as np
@@ -44,6 +45,7 @@ from rag_icd10_tpu_torch.models import deepseek_v3 as dv
 from rag_icd10_tpu_torch.models import family as model_family
 from rag_icd10_tpu_torch.models.tokenizer import WordPieceTokenizer
 from rag_icd10_tpu_torch.ops import mla_attention as mla
+from rag_icd10_tpu_torch.ops import rms_norm
 from rag_icd10_tpu_torch.parallel import train as ptrain
 from rag_icd10_tpu_torch.parallel.mesh import make_mesh
 from rag_icd10_tpu_torch.tools import train_encoder as ttool
@@ -403,7 +405,8 @@ def test_cli_trains_a_decoder_saves_and_reloads(decoder_cli):
 def test_cli_log_line_reads_the_experts_and_the_kernel(decoder_cli, caplog):
     """The --log-every line of a decoder carries its own fields after the
     BERT line's: the held experts' share and load, and the latent-attention
-    kernel's calls a step (0 on the CPU, where the plain version runs)."""
+    and add + RMSNorm kernels' calls a step (0 on the CPU, where the plain
+    versions run)."""
     tmp, _, _ = decoder_cli
     with caplog.at_level("INFO", logger="rag_icd10_tpu_torch.train"):
         rc = ttool.main(ARGS + ["--steps", "2", "--init-from", str(tmp / "init" / "params.npz"),
@@ -415,9 +418,10 @@ def test_cli_log_line_reads_the_experts_and_the_kernel(decoder_cli, caplog):
     for r in lines:
         text = r.getMessage()
         assert "piece memo" in text and "experts held" in text and "load max/mean" in text
-        assert "MLA kernel 0.0 calls a step" in text
-        share, load, calls = r.args[-3:]
+        assert "MLA kernel 0.0 calls a step" in text and "norm kernel 0.0 calls a step" in text
+        share, load, calls, norm_calls = r.args[-4:]
         assert 0 < share < 100 and load >= 1 and calls == 0  # 4 of 16 experts held
+        assert norm_calls == 0
 
 
 def test_cli_refuses_a_vocabulary_wider_than_the_embedding(decoder_cli):
@@ -457,6 +461,13 @@ def test_rope_is_the_published_rotation():
 # --------------------------------------- the attention core (ops/mla_attention.py)
 
 
+def _old_rms_norm(norm, x):
+    """``RMSNorm.forward`` as it was written before the residual add and the
+    consumers' casts moved into ops/rms_norm.py: fp32 in, fp32 out."""
+    x = x.float()
+    return norm.weight * (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + norm.eps))
+
+
 def _old_latent_attention(attn, x, cos, sin, causal):
     """``LatentAttention.forward`` as it was written inline before the core
     moved to ops/mla_attention.py, kept verbatim as the plain version's
@@ -469,7 +480,8 @@ def _old_latent_attention(attn, x, cos, sin, causal):
     q = attn.q_proj(x).view(b, s, nh, nope + rope).transpose(1, 2)
     q_nope, q_pe = q.split([nope, rope], dim=-1)
     latent, k_pe = attn.kv_a_proj_with_mqa(x).split([a.kv_lora_rank, rope], dim=-1)
-    kv = attn.kv_b_proj(attn.kv_a_layernorm(latent)).view(b, s, nh, nope + vd).transpose(1, 2)
+    kv = attn.kv_b_proj(_old_rms_norm(attn.kv_a_layernorm, latent))
+    kv = kv.view(b, s, nh, nope + vd).transpose(1, 2)
     k_nope, v = kv.split([nope, vd], dim=-1)
     q_pe = mla.apply_rope(q_pe.float(), cos, sin).to(dt)
     k_pe = mla.apply_rope(k_pe.float()[:, None], cos, sin).to(dt)  # one k_pe for every head
@@ -496,8 +508,8 @@ def test_plain_attention_core_is_the_old_inline_code_bit_for_bit(compute):
     causal = torch.full((s, s), torch.finfo(torch.float32).min).triu(1)
     target = torch.randn(3, s, arch.hidden_size, generator=torch.Generator().manual_seed(9))
     runs = []
-    for fn in (lambda xx: attn(xx, cos, sin), lambda xx: _old_latent_attention(attn, xx, cos, sin,
-                                                                               causal)):
+    for fn in (lambda xx: attn(xx, xx, cos, sin),  # both projections read the one input
+               lambda xx: _old_latent_attention(attn, xx, cos, sin, causal)):
         attn.zero_grad()
         xx = x.clone().requires_grad_(True)
         out = fn(xx)
@@ -554,3 +566,166 @@ def test_kernel_path_refuses_what_it_does_not_take(bad, match):
     to the plain version."""
     with pytest.raises(ValueError, match=match):
         mla.mla_attention(*_meta_inputs(**bad))
+
+
+# ------------------------------------- the residual add + RMSNorm (ops/rms_norm.py)
+
+
+def _old_hidden(model, ids):
+    """``DeepseekV3Model.forward`` as it was written before the residual adds
+    moved into the norms, with the old norm and attention written out above:
+    the plain path's yardstick."""
+    m = model.model
+    a, s = m.arch, ids.shape[1]
+    cos, sin = dv.rope_tables(s, a.qk_rope_head_dim, a.rope_theta, "cpu")
+    causal = torch.full((s, s), torch.finfo(torch.float32).min).triu(1)
+    x = m.embed_tokens(ids)
+    for layer in m.layers:
+        h = _old_rms_norm(layer.input_layernorm, x)
+        x = x + _old_latent_attention(layer.self_attn, h, cos, sin, causal).float()
+        x = x + layer.mlp(_old_rms_norm(layer.post_attention_layernorm, x)).float()
+    return _old_rms_norm(m.norm, x)
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_plain_norms_are_the_old_inline_chain_bit_for_bit(compute):
+    """The decoder with its residual adds in the norms, on the CPU, gives the
+    old inline chain's hidden states and every parameter's gradient bit for
+    bit: the same operations at the same rounding points."""
+    arch = _arch(compute)
+    model = _model(arch, _params(arch))
+    ids, _ = _rows(3, 10, seed=12)
+    target = torch.randn(3, 10, arch.hidden_size, generator=torch.Generator().manual_seed(13))
+    runs = []
+    for fn in (lambda: model.model(ids), lambda: _old_hidden(model, ids)):
+        model.zero_grad()
+        out = fn()
+        (out * target).sum().backward()
+        runs.append((out.detach(), {n: p.grad.clone() for n, p in model.named_parameters()
+                                    if p.grad is not None}))
+    (new, g_new), (old, g_old) = runs
+    assert new.dtype == torch.float32 and torch.equal(new, old)
+    assert set(g_new) == set(g_old) and any(".experts." in n for n in g_new)
+    for n in g_new:
+        assert torch.equal(g_new[n], g_old[n]), n
+
+
+def _old_site(x, branch, weight, eps, out):
+    """One site as the old chain wrote it: the residual add, the norm, then
+    each consumer's cast of the fp32 output."""
+    if branch is not None:
+        x = x + branch.float()
+    y = _old_rms_norm(SimpleNamespace(weight=weight, eps=eps), x)
+    return x, tuple(y.to(dt) for dt in out)
+
+
+BF, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("x_dtype, branch_dtype, out", [
+    (F32, BF, (BF, BF)),  # a hidden site: attention's or the dense MLP's inputs
+    (F32, F32, (F32, BF, BF)),  # the most a site may ask for: one fp32 output, two bf16
+    (F32, BF, (F32,)),  # an expert layer's inputs; the final norm after a dense layer
+    (F32, None, (BF, BF)),  # layer 0's input norm
+    (BF, None, (BF,)),  # kv_a_layernorm on the bf16 latent
+    (F32, None, (F32, F32)),  # the fp32 model
+    (F32, F32, (BF, BF)),  # the attention's inputs after an expert layer
+])
+def test_plain_site_is_the_old_chain_bit_for_bit(x_dtype, branch_dtype, out):
+    """``add_rms_norm_reference`` against the old chain at one site: x_new,
+    each consumer's copy, and the gradients of x, the branch and the weight
+    for every output's gradient (the consumers' casts' gradients added in
+    fp32 in both)."""
+    gen = torch.Generator().manual_seed(14)
+    x0 = torch.randn(4, 6, 64, generator=gen).to(x_dtype)
+    b0 = None if branch_dtype is None else torch.randn(4, 6, 64, generator=gen).to(branch_dtype)
+    w0 = 1.0 + 0.1 * torch.randn(64, generator=gen)
+    dys = [torch.randn(4, 6, 64, generator=gen).to(dt) for dt in out]
+    dx_new = torch.randn(4, 6, 64, generator=gen)
+    runs = []
+    for fn in (rms_norm.add_rms_norm_reference, _old_site):
+        x, w = x0.clone().requires_grad_(True), w0.clone().requires_grad_(True)
+        b = None if b0 is None else b0.clone().requires_grad_(True)
+        x_new, ys = fn(x, b, w, 1e-5, out)
+        loss = sum((y.float() * dy.float()).sum() for y, dy in zip(ys, dys))
+        if b is not None:
+            loss = loss + (x_new * dx_new).sum()
+        loss.backward()
+        runs.append([x_new.detach(), *(y.detach() for y in ys), x.grad, w.grad]
+                    + ([] if b is None else [b.grad]))
+    for got, want in zip(*runs):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    assert [y.dtype for y in runs[0][1:1 + len(out)]] == list(out)
+
+
+def test_norm_wrapper_takes_the_plain_path_for_cpu_tensors(monkeypatch):
+    """On CPU tensors every norm of the model is the plain version: 16 calls
+    in a 3-layer model (3 input norms, 3 post-attention, 3 latent, the
+    final), no kernel launch, no ``norm.kernel_calls``."""
+    arch = _arch("bfloat16")
+    model = _model(arch, _params(arch))
+    calls = []
+    plain = rms_norm.add_rms_norm_reference
+
+    def counted(x, branch, weight, eps, out):
+        calls.append((x.shape[-1], branch is not None, tuple(out)))
+        return plain(x, branch, weight, eps, out)
+
+    monkeypatch.setattr(rms_norm, "add_rms_norm_reference", counted)
+    launches = rms_norm.add_rms_norm.launches
+    ids, mask = _rows(4, 9, seed=15)
+    model(ids, mask).sum().backward()
+    bf = torch.bfloat16
+    hidden = [c for c in calls if c[0] == arch.hidden_size]
+    assert len(calls) == 10 and len(hidden) == 7
+    assert hidden[0] == (64, False, (bf, bf))  # layer 0's input: no branch
+    assert hidden[1] == (64, True, (bf, bf))  # the dense MLP's gate and up
+    assert hidden[3] == (64, True, (torch.float32,))  # router, gather, shared experts
+    assert hidden[4] == (64, True, (bf, bf))  # after an expert layer: the attention's inputs
+    assert hidden[-1] == (64, True, (torch.float32,))  # the final norm, for the pooling
+    assert [c for c in calls if c[0] == arch.kv_lora_rank] == [(32, False, (bf,))] * 3
+    assert rms_norm.add_rms_norm.launches == launches
+    assert "norm.kernel_calls" not in metrics.counters("norm.")
+
+
+def _meta_site(width=2048, x_dtype=torch.float32, branch_dtype=torch.bfloat16,
+               weight_shape=None, rows=5):
+    with torch.device("meta"):
+        x = torch.empty(rows, width, dtype=x_dtype)
+        branch = None if branch_dtype is None else torch.empty(rows, width, dtype=branch_dtype)
+        return x, branch, torch.empty(weight_shape or (width,), dtype=torch.float32)
+
+
+@pytest.mark.parametrize("site, out, match", [
+    (dict(), (torch.bfloat16,), "CUDA tensors"),  # a site the kernels take, on no card
+    (dict(width=1024), (torch.bfloat16,), "widths"),
+    (dict(x_dtype=torch.float16, branch_dtype=None), (torch.float32,), "fp32 or bf16 x"),
+    (dict(x_dtype=torch.bfloat16), (torch.bfloat16,), "branch to fp32 x"),
+    (dict(branch_dtype=torch.float16), (torch.bfloat16,), "branch to fp32 x"),
+    (dict(weight_shape=(512,)), (torch.bfloat16,), "weight must be fp32"),
+    (dict(), (torch.bfloat16,) * 3, "up to two bf16"),
+    (dict(), (torch.float16,), "up to two bf16"),
+    (dict(), (), "up to two bf16"),
+    (dict(rows=0), (torch.bfloat16,), "CUDA tensors"),
+])
+def test_norm_kernel_path_refuses_what_it_does_not_take(site, out, match):
+    """Off the CPU the wrapper launches the kernels or raises: no fallback
+    to the plain version."""
+    x, branch, weight = _meta_site(**site)
+    with pytest.raises(ValueError, match=match):
+        rms_norm.add_rms_norm(x, branch, weight, 1e-5, out)
+
+
+def test_row_stride_reads_views_in_place():
+    """The kernels read x through its row stride where its rows are
+    contiguous, evenly spaced and 16-byte aligned (the latent: the first 512
+    of kv_a_proj_with_mqa's 576 columns), and take a copy otherwise."""
+    kv_a = torch.zeros(3, 7, 576, dtype=torch.bfloat16)
+    latent, _ = kv_a.split([512, 64], dim=-1)
+    assert rms_norm._row_stride(latent) == 576
+    assert rms_norm._row_stride(torch.zeros(3, 7, 2048)) == 2048
+    assert rms_norm._row_stride(torch.zeros(2048)) == 2048
+    assert rms_norm._row_stride(torch.zeros(7, 3, 512).transpose(0, 1)) is None  # rows uneven
+    assert rms_norm._row_stride(torch.zeros(4, 512)[:, ::1].t()) is None  # columns strided
+    assert rms_norm._row_stride(torch.zeros(3, 516, dtype=torch.bfloat16)[:, 4:]) is None  # 8 B off
+    assert rms_norm._row_stride(torch.zeros(2, 1, 512)[:, :, :]) == 512  # a size-1 dim

@@ -141,10 +141,11 @@ def test_capabilities():
 
 def test_decoder_log_values_are_the_interval_s():
     held = np.array([0, 0, 3, 1, 0, 0, 0, 0])  # 8 experts; 4 slots of 10 routed went here
-    before = ({"moe.held_slots.1": np.zeros(8), "moe.routed_slots.1": np.asarray(0)}, 7)
-    after = ({"moe.held_slots.1": held, "moe.routed_slots.1": np.asarray(10)}, 27)
+    before = ({"moe.held_slots.1": np.zeros(8), "moe.routed_slots.1": np.asarray(0)}, 7, 16)
+    after = ({"moe.held_slots.1": held, "moe.routed_slots.1": np.asarray(10)}, 27, 80)
     decoder = model_family.FAMILIES["deepseek_v3"]
-    share, load, calls = decoder.log_values(before, after, 4)
-    assert share == 40.0 and load == 3 / 0.5 and calls == 5.0
-    assert decoder.log_text % (share, load, calls) == (
-        "; experts held 40.0% of slots, load max/mean 6.00; MLA kernel 5.0 calls a step")
+    share, load, calls, norm_calls = decoder.log_values(before, after, 4)
+    assert share == 40.0 and load == 3 / 0.5 and calls == 5.0 and norm_calls == 16.0
+    assert decoder.log_text % (share, load, calls, norm_calls) == (
+        "; experts held 40.0% of slots, load max/mean 6.00; MLA kernel 5.0 calls a step; "
+        "norm kernel 16.0 calls a step")
