@@ -143,9 +143,10 @@
    forwards per request and ms per forward (beside the fused phase's
    12-layer classifier's) printed.
 10. MLA phase (ops/mla_attention.py, ops/csrc/mla_attention.cu): the
-   latent-attention kernels at the Moonlight cell's two shapes (512 rows
-   of 48 positions, 256 of 96; 16 heads, 128 + 64 / 128 dimensions,
-   bf16), held against the plain
+   latent-attention kernels at the decoder cells' two shapes (512 rows
+   of 48 positions, 256 of 96; 128 + 64 / 128 dimensions, bf16), with
+   Moonlight's 16 heads and rope tables and with Kimi-Linear's 32 heads
+   and the tables of no rotation (NoPE), held against the plain
    version (context and the three gradients) and timed forward and
    forward + backward (CUDA events back to back, and behind a sleeping
    kernel for the card's time; each kernel's share by torch.profiler)
@@ -165,12 +166,20 @@
    forward + backward on the card behind a sleeping kernel (each kernel's
    share by torch.profiler) beside their bound (each input read once and
    each output written once at 3.35 TB/s), the plain chain and
-   F.rms_norm on x_new (library; a yardstick the port never calls).
+   F.rms_norm on x_new (library; a yardstick the port never calls); and the
+   Kimi cell's seven sites at its width 2304, named by the layer that
+   reads them (KIMI_NORM_SITES: layer 1's input, no branch; its dense
+   MLP's input, a bf16 branch and two bf16 copies; layer 2's input, a bf16
+   branch and one bf16 copy; each expert layer's input, a bf16 branch and
+   fp32 out; a delta-rule layer's input after an expert layer, an fp32
+   branch and one bf16 copy; the latent attention's, an fp32 branch and
+   two bf16 copies; the final norm, an fp32 branch and fp32 out).
    Alone: python3 -c 'import chip_smoke; chip_smoke.norm_phase()'.
-12. One forward and backward of the encoder at Moonlight's widths in the
-   cell's two shapes: the MLA kernels' launches (30) and forward calls
-   (10), the add + RMSNorm kernels' launches (96) and forward calls (32),
-   the entries' launches_by_path. Alone:
+12. One forward and backward of each decoder cell's encoder at its
+   published widths in the cells' two shapes: Moonlight's launches the
+   MLA kernels 30 times (10 forward calls) and the add + RMSNorm kernels
+   96 times (32), Kimi-Linear's 6 (2) and 72 (24), with its delta-rule
+   core called 8 times; the entries' launches_by_path. Alone:
    python3 -c 'import chip_smoke; chip_smoke.decoder_step_launches()'.
 13. Prints one JSON line describing each kernel (K1, K2 and K5 with their
    sharded launches and rows; K1 with its eval_gate, eval_gate_tp and
@@ -2977,17 +2986,18 @@ def ner_train_phase(corpus, cfg, fused_ner_ms: float) -> dict:
     return found
 
 
-MLA_SHAPES = ((512, 48), (256, 96))  # (rows, positions) of the Moonlight cell's two forwards
-MLA_HEADS, MLA_NOPE, MLA_ROPE, MLA_V, MLA_LORA = 16, 128, 64, 128, 512
+MLA_SHAPES = ((512, 48), (256, 96))  # (rows, positions) of the decoder cells' two forwards
+MLA_NOPE, MLA_ROPE, MLA_V, MLA_LORA = 128, 64, 128, 512
+MLA_MODELS = (("moonlight", 16, "rope"), ("kimi_linear", 32, "nope"))  # (model, heads, tables)
 
 
-def mla_bound_ms(b: int, s: int):
+def mla_bound_ms(b: int, s: int, h: int):
     """Least time of one forward and one backward: each call's inputs read
     once and outputs written once (bf16, the fp32 cos/sin and log-sum-exp),
     or its products over the causal (query, key) pairs at the bf16 peak:
     forward q.k (192) and P.v (128); backward q.k again, dO.v, P.dO, dS.k
     and dS.q (192 + 128 + 128 + 192 + 192)."""
-    h, nope, rope, vd = MLA_HEADS, MLA_NOPE, MLA_ROPE, MLA_V
+    nope, rope, vd = MLA_NOPE, MLA_ROPE, MLA_V
     t = b * s
     q, kv = t * h * (nope + rope) * 2, t * h * (nope + vd) * 2
     kpe, ctx = t * rope * 2, t * h * vd * 2
@@ -3000,19 +3010,20 @@ def mla_bound_ms(b: int, s: int):
 
 
 def mla_phase() -> list:
-    """The MLA kernels at the Moonlight cell's shapes: held against the
-    plain version, timed beside their bound, the plain version and SDPA."""
+    """The MLA kernels at the decoder cells' shapes, heads and tables: held
+    against the plain version, timed beside their bound, the plain version
+    and SDPA."""
     import torch
     import torch.nn.functional as F
 
     sys.path.insert(0, str(ROOT))
-    from rag_icd10_tpu_torch.models.deepseek_v3 import rope_tables
+    from rag_icd10_tpu_torch.models.deepseek_v3 import nope_tables, rope_tables
     from rag_icd10_tpu_torch.ops import mla_attention as mla
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    h, nope, rope, vd, lora = MLA_HEADS, MLA_NOPE, MLA_ROPE, MLA_V, MLA_LORA
+    nope, rope, vd, lora = MLA_NOPE, MLA_ROPE, MLA_V, MLA_LORA
     rows = []
-    for b, s in MLA_SHAPES:
+    for (model, h, kind), (b, s) in ((m, shape) for m in MLA_MODELS for shape in MLA_SHAPES):
         gen = torch.Generator(device=DEVICE).manual_seed(s)
 
         def normal(*shape):
@@ -3022,7 +3033,8 @@ def mla_phase() -> list:
         kv = normal(b, s, h * (nope + vd)).requires_grad_(True)
         kv_a = normal(b, s, lora + rope).requires_grad_(True)
         d_out = normal(b, s, h * vd)
-        cos, sin = rope_tables(s, rope, 50000.0, DEVICE)
+        cos, sin = (rope_tables(s, rope, 50000.0, DEVICE) if kind == "rope"
+                    else nope_tables(s, rope, DEVICE))
         leaves = (q, kv, kv_a)
 
         def step(fn, backward=True):
@@ -3040,7 +3052,7 @@ def mla_phase() -> list:
         for name, g, t in zip(("dq", "dkv", "dk_pe"), got_g, leaves):
             errs[name] = max_err(g.float(), t.grad.float()) / t.grad.float().abs().max().item()
         check(errs["out"] <= 2 ** -7 and max(errs.values()) <= 2 ** -6,
-              f"MLA kernel against the plain version at B {b} S {s}: {errs}")
+              f"MLA kernel against the plain version at B {b} S {s}, {h} heads, {kind}: {errs}")
 
         # the library yardstick on the same (rotated) q, k and v
         with torch.no_grad():
@@ -3060,9 +3072,10 @@ def mla_phase() -> list:
             F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
                                            scale=(nope + rope) ** -0.5).backward(d4)
 
-        (fwd_bound, fwd_by), (bwd_bound, bwd_by) = mla_bound_ms(b, s)
+        (fwd_bound, fwd_by), (bwd_bound, bwd_by) = mla_bound_ms(b, s, h)
         row = {
-            "B": b, "S": s, "heads": h, "dims": [nope, rope, vd], "max_rel_err": errs,
+            "model": model, "B": b, "S": s, "heads": h, "tables": kind,
+            "dims": [nope, rope, vd], "max_rel_err": errs,
             "fwd_ms": time_ms(lambda: step(mla.mla_attention, backward=False)),
             "ms": time_ms(lambda: step(mla.mla_attention)),
             "fwd_device_ms": device_ms(lambda: step(mla.mla_attention, backward=False)),
@@ -3084,12 +3097,22 @@ def mla_phase() -> list:
     return rows
 
 
-NORM_SHAPE = (512, 48)  # the Moonlight cell's first forward call: T = 24,576 positions
+NORM_SHAPE = (512, 48)  # the decoder cells' first forward call: T = 24,576 positions
 NORM_SITES = {  # name: (width, x dtype, branch dtype, outputs, x read in place from 576 columns)
     "hidden": (2048, "float32", "bfloat16", ("bfloat16", "bfloat16"), False),
     "expert_inputs": (2048, "float32", "bfloat16", ("float32",), False),
     "after_experts": (2048, "float32", "float32", ("bfloat16", "bfloat16"), False),
     "latent": (512, "bfloat16", None, ("bfloat16",), True),
+}
+KIMI_NORM_SITES = {  # the Kimi cell's at its hidden width (a block of 288 threads a row): name
+    # by the layer that reads it, with its forward calls a step
+    "kimi_embedding": (2304, "float32", None, ("bfloat16",), False),  # layer 1's input; 2
+    "kimi_dense_mlp_input": (2304, "float32", "bfloat16", ("bfloat16", "bfloat16"), False),  # 2
+    "kimi_after_dense_mlp": (2304, "float32", "bfloat16", ("bfloat16",), False),  # layer 2's; 2
+    "kimi_expert_input": (2304, "float32", "bfloat16", ("float32",), False),  # layers 2-5; 8
+    "kimi_delta_rule_after_experts": (2304, "float32", "float32", ("bfloat16",), False),  # 4
+    "kimi_mla_after_experts": (2304, "float32", "float32", ("bfloat16", "bfloat16"), False),  # 2
+    "kimi_final_norm": (2304, "float32", "float32", ("float32",), False),  # 2
 }
 
 
@@ -3124,9 +3147,9 @@ def norm_bytes(width: int, x_dt, branch_dt, out) -> tuple:
 
 
 def norm_phase() -> list:
-    """The add + RMSNorm kernels at the Moonlight cell's sites and row
-    count: held against the plain chain, timed beside their bound, the
-    plain chain and F.rms_norm."""
+    """The add + RMSNorm kernels at the decoder cells' sites and row count:
+    held against the plain chain, timed beside their bound, the plain
+    chain and F.rms_norm."""
     import torch
     import torch.nn.functional as F
 
@@ -3134,7 +3157,7 @@ def norm_phase() -> list:
     from rag_icd10_tpu_torch.ops import rms_norm
 
     rows = []
-    for site, (width, x_dt, b_dt, out_names, in_place) in NORM_SITES.items():
+    for site, (width, x_dt, b_dt, out_names, in_place) in (NORM_SITES | KIMI_NORM_SITES).items():
         gen = torch.Generator(device=DEVICE).manual_seed(width)
         out = tuple(getattr(torch, dt) for dt in out_names)
 
@@ -3214,23 +3237,55 @@ def norm_phase() -> list:
     return rows
 
 
-def decoder_step_launches() -> dict:
-    """The MLA and add + RMSNorm kernels' launches in one step of the
-    Moonlight cell's shape: the encoder at Moonlight-16B-A3B's widths (5
-    layers, experts 0-7 held, bf16 over fp32 masters), a forward of 512
-    rows of 48 positions and one of 256 rows of 96, one backward through
-    both. The counters' rise is what the main path launched: MLA 10
-    forward calls, 30 launches; add + RMSNorm 32 forward calls (11
-    hidden-width sites and 5 latent a call), 96 launches."""
+def step_launches(model, vocab: int, want: dict) -> dict:
+    """One forward of 512 rows of 48 positions and one of 256 of 96 through
+    ``model``, one backward through both: the MLA and add + RMSNorm
+    kernels' launches and forward calls, and the delta-rule core's forward
+    calls, each counted from zero just before the step, held to ``want``."""
     import torch
 
-    sys.path.insert(0, str(ROOT))
-    from rag_icd10_tpu_torch.models import deepseek_v3 as dv
     from rag_icd10_tpu_torch.ops import mla_attention as mla
     from rag_icd10_tpu_torch.ops import rms_norm
     from rag_icd10_tpu_torch.utils.metrics import metrics
 
-    config = dict(
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    calls = [torch.randint(1, vocab, (b, s), generator=gen, device=DEVICE) for b, s in MLA_SHAPES]
+    torch.cuda.synchronize()
+    mla.mla_attention.launches = rms_norm.add_rms_norm.launches = 0
+    before = metrics.counters()
+    loss = 0.0
+    for ids in calls:
+        loss = loss + model(ids, torch.ones_like(ids)).float().pow(2).sum()
+    loss.backward()
+    torch.cuda.synchronize()
+    after = metrics.counters()
+
+    def rise(key):
+        return int(after.get(key, 0)) - int(before.get(key, 0))
+
+    found = {k: {"launches": launches, "kernel_calls": rise(f"{k}.kernel_calls")}
+             for k, launches in (("mla", mla.mla_attention.launches),
+                                 ("norm", rms_norm.add_rms_norm.launches))}
+    found["kda"] = {"core_calls": rise("kda.core_calls")}
+    return found
+
+
+def decoder_step_launches() -> dict:
+    """The MLA and add + RMSNorm kernels' launches in one step of each
+    decoder cell's shape, bf16 over fp32 masters, experts 0-7 held. The
+    counters' rise is what the main path launched. Moonlight-16B-A3B's
+    widths, 5 layers: MLA 10 forward calls, 30 launches; add + RMSNorm 32
+    forward calls (11 hidden-width sites and 5 latent a call), 96
+    launches. Kimi-Linear-48B-A3B's, 5 layers (delta rule x3, latent
+    attention without rotation, delta rule): MLA 2 and 6; add + RMSNorm 24
+    (11 sites at 2304 and 1 latent a call) and 72; the delta-rule core 8."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from rag_icd10_tpu_torch.models import deepseek_v3 as dv
+    from rag_icd10_tpu_torch.models import kimi_linear as kl
+
+    moonlight = dv.DeepseekV3Arch.from_config(dict(
         model_type="deepseek_v3", vocab_size=21128, hidden_size=2048, intermediate_size=11264,
         moe_intermediate_size=1408, num_hidden_layers=5, num_attention_heads=16,
         kv_lora_rank=512, q_lora_rank=None, qk_nope_head_dim=128, qk_rope_head_dim=64,
@@ -3238,31 +3293,33 @@ def decoder_step_launches() -> dict:
         routed_scaling_factor=2.446, norm_topk_prob=True, first_k_dense_replace=1,
         moe_layer_freq=1, rms_norm_eps=1e-5, rope_theta=50000, max_position_embeddings=8192,
         scoring_func="sigmoid", topk_method="noaux_tc", n_group=1, topk_group=1,
-        experts_held=list(range(8)))
-    arch = dv.DeepseekV3Arch.from_config(config, compute_dtype=torch.bfloat16)
-    with torch.device(DEVICE):
-        model = dv.SentenceDeepseekV3(arch)
-    gen = torch.Generator(device=DEVICE).manual_seed(5)
-    mla.mla_attention.launches = rms_norm.add_rms_norm.launches = 0
-    counters = metrics.counters()
-    calls = {k: int(counters.get(f"{k}.kernel_calls", 0)) for k in ("mla", "norm")}
-    loss = 0.0
-    for b, s in MLA_SHAPES:
-        ids = torch.randint(1, arch.vocab_size, (b, s), generator=gen, device=DEVICE)
-        loss = loss + model(ids, torch.ones_like(ids)).float().pow(2).sum()
-    loss.backward()
-    torch.cuda.synchronize()
-    counters = metrics.counters()
-    found = {k: {"launches": launches,
-                 "kernel_calls": int(counters.get(f"{k}.kernel_calls", 0)) - calls[k]}
-             for k, launches in (("mla", mla.mla_attention.launches),
-                                 ("norm", rms_norm.add_rms_norm.launches))}
-    check(found == {"mla": {"launches": 30, "kernel_calls": 10},
-                    "norm": {"launches": 96, "kernel_calls": 32}},
-          f"one Moonlight-shaped step launched the MLA and add + RMSNorm kernels {found}")
-    print("decoder train step " + json.dumps(found), flush=True)
-    del model, loss
-    torch.cuda.empty_cache()
+        experts_held=list(range(8))), compute_dtype=torch.bfloat16)
+    kimi = kl.KimiLinearArch.from_config(dict(
+        model_type="kimi_linear", vocab_size=21128, hidden_size=2304, intermediate_size=9216,
+        moe_intermediate_size=1024, num_hidden_layers=5, num_attention_heads=32,
+        kv_lora_rank=512, q_lora_rank=None, qk_nope_head_dim=128, qk_rope_head_dim=64,
+        v_head_dim=128, num_experts=256, num_experts_per_token=8, num_shared_experts=1,
+        routed_scaling_factor=2.446, moe_renormalize=True, moe_router_activation_func="sigmoid",
+        num_expert_group=1, topk_group=1, first_k_dense_replace=1, moe_layer_freq=1,
+        rms_norm_eps=1e-5, mla_use_nope=True, experts_held=list(range(8)),
+        linear_attn_config=dict(kda_layers=[1, 2, 3, 5], full_attn_layers=[4], head_dim=128,
+                                num_heads=32, short_conv_kernel_size=4)),
+        compute_dtype=torch.bfloat16)
+    found = {}
+    for name, make, arch, want in (
+            ("moonlight", dv.SentenceDeepseekV3, moonlight,
+             {"mla": {"launches": 30, "kernel_calls": 10},
+              "norm": {"launches": 96, "kernel_calls": 32}, "kda": {"core_calls": 0}}),
+            ("kimi_linear", kl.SentenceKimiLinear, kimi,
+             {"mla": {"launches": 6, "kernel_calls": 2},
+              "norm": {"launches": 72, "kernel_calls": 24}, "kda": {"core_calls": 8}})):
+        with torch.device(DEVICE):
+            model = make(arch)
+        found[name] = step_launches(model, arch.vocab_size, want)
+        check(found[name] == want, f"one {name}-shaped step launched {found[name]}")
+        print(f"decoder train step {name} " + json.dumps(found[name]), flush=True)
+        del model
+        torch.cuda.empty_cache()
     return found
 
 
@@ -3379,7 +3436,7 @@ def main() -> int:
         "source": "rag_icd10_tpu_torch/ops/csrc/mla_attention.cu",
         "replaces": None,
         "main_shapes": mla_rows,
-        "launches_by_path": {"moonlight_train_step": decoder_step["mla"]},
+        "launches_by_path": {f"{m}_train_step": decoder_step[m]["mla"] for m in decoder_step},
     })
     kernels.append({
         "name": "add_rms_norm (rms_norm_fwd, rms_norm_bwd, rms_norm_dw)",
@@ -3387,7 +3444,7 @@ def main() -> int:
         "source": "rag_icd10_tpu_torch/ops/csrc/rms_norm.cu",
         "replaces": None,
         "main_shapes": norm_rows,
-        "launches_by_path": {"moonlight_train_step": decoder_step["norm"]},
+        "launches_by_path": {f"{m}_train_step": decoder_step[m]["norm"] for m in decoder_step},
     })
     e2e["sketch_1M"] = sketch_large
     print("e2e " + json.dumps(e2e), flush=True)

@@ -166,16 +166,18 @@ class DeepseekV3Arch:
 
 
 class Linear(nn.Linear):
-    """A bias-free projection with fp32 weights, computed in
-    ``arch.compute_dtype`` (input and weight cast to it)."""
+    """A projection with fp32 weights (and bias, where it has one; none by
+    default), computed in ``arch.compute_dtype`` (input, weight and bias
+    cast to it)."""
 
-    def __init__(self, n_in: int, n_out: int, arch: DeepseekV3Arch):
-        super().__init__(n_in, n_out, bias=False, dtype=torch.float32)
+    def __init__(self, n_in: int, n_out: int, arch, bias: bool = False):
+        super().__init__(n_in, n_out, bias=bias, dtype=torch.float32)
         self.compute_dtype = arch.compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class RMSNorm(nn.Module):
@@ -201,6 +203,15 @@ def rope_tables(seq: int, dim: int, theta: float, device) -> Tuple[torch.Tensor,
     freqs = torch.outer(torch.arange(seq, dtype=torch.float32, device=device), inv)
     emb = torch.cat([freqs, freqs], dim=-1)
     return emb.cos(), emb.sin()
+
+
+def nope_tables(seq: int, dim: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) of no rotation (NoPE: cos 1, sin 0), each (seq, dim) in
+    fp32: the rope dimensions pass through the attention core unrotated
+    (its de-interleave permutes q's and k's pairs alike, and so leaves
+    their products as they are)."""
+    return (torch.ones(seq, dim, dtype=torch.float32, device=device),
+            torch.zeros(seq, dim, dtype=torch.float32, device=device))
 
 
 class LatentAttention(nn.Module):
@@ -318,21 +329,27 @@ class ExpertShare(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, arch: DeepseekV3Arch, layer: int):
+    """Norm, token mixer, norm, MLP. The token mixer is ``self_attn``: the
+    latent attention where none is given, under the span ``span``."""
+
+    def __init__(self, arch: DeepseekV3Arch, layer: int, self_attn: Optional[nn.Module] = None,
+                 span: str = "mla"):
         super().__init__()
         h, eps = arch.hidden_size, arch.rms_norm_eps
-        self.self_attn = LatentAttention(arch)
+        self.self_attn = LatentAttention(arch) if self_attn is None else self_attn
         self.mlp = (ExpertShare(arch, layer) if arch.is_moe(layer)
                     else SwiGLU(arch, arch.intermediate_size))
         self.input_layernorm = RMSNorm(h, eps)
         self.post_attention_layernorm = RMSNorm(h, eps)
+        self.span = span
 
     def forward(self, x, branch, cos, sin) -> Tuple[torch.Tensor, torch.Tensor]:
         """``x``: the fp32 residual stream before ``branch``, the previous
         layer's MLP output (None before the first layer), is added. Returns
-        the stream with ``branch`` and the attention's output added, and the
-        MLP's output, which the next norm adds."""
-        with metrics.span("mla"):
+        the stream with ``branch`` and the token mixer's output added, and
+        the MLP's output, which the next norm adds. The mixer takes its
+        input copies (``inputs``), then ``cos`` and ``sin``."""
+        with metrics.span(self.span):
             x, h = self.input_layernorm(x, branch, self.self_attn.inputs)
             branch = self.self_attn(*h, cos, sin)
         x, h = self.post_attention_layernorm(x, branch, self.mlp.inputs)
@@ -340,20 +357,25 @@ class DecoderLayer(nn.Module):
 
 
 class DeepseekV3Model(nn.Module):
-    """Token ids -> the final RMSNorm's output, (B, S, H) fp32."""
+    """Token ids -> the final RMSNorm's output, (B, S, H) fp32. ``layers``:
+    the decoder layers where they are not all ``DecoderLayer(arch, i)``."""
 
-    def __init__(self, arch: DeepseekV3Arch):
+    def __init__(self, arch: DeepseekV3Arch, layers: Optional[Sequence[nn.Module]] = None):
         super().__init__()
         self.arch = arch
         self.embed_tokens = nn.Embedding(arch.vocab_size, arch.hidden_size,
                                          dtype=torch.float32)
-        self.layers = nn.ModuleList(DecoderLayer(arch, i) for i in range(arch.num_hidden_layers))
+        self.layers = nn.ModuleList(layers if layers is not None else
+                                    (DecoderLayer(arch, i) for i in range(arch.num_hidden_layers)))
         self.norm = RMSNorm(arch.hidden_size, arch.rms_norm_eps)
 
+    def tables(self, seq: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The latent attention's (cos, sin), built once a forward."""
+        a = self.arch
+        return rope_tables(seq, a.qk_rope_head_dim, a.rope_theta, device)
+
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        a, s = self.arch, input_ids.shape[1]
-        dev = input_ids.device
-        cos, sin = rope_tables(s, a.qk_rope_head_dim, a.rope_theta, dev)
+        cos, sin = self.tables(input_ids.shape[1], input_ids.device)
         x, branch = self.embed_tokens(input_ids), None
         for layer in self.layers:
             x, branch = layer(x, branch, cos, sin)
@@ -401,10 +423,12 @@ def init_params(arch: DeepseekV3Arch, seed: int = 0) -> Dict[str, np.ndarray]:
     return out
 
 
-def load_weights(path: str, arch: DeepseekV3Arch) -> Dict[str, np.ndarray]:
-    """The tensors ``arch`` holds, read from a checkpoint ``.npz`` in the
+def load_weights(path: str, arch: DeepseekV3Arch,
+                 shapes: Optional[Dict[str, Tuple[int, ...]]] = None) -> Dict[str, np.ndarray]:
+    """The tensors ``arch`` holds (``shapes``: name -> shape, where it is not
+    ``weight_names(arch)``), read from a checkpoint ``.npz`` in the
     published names (others, such as absent experts, are not read)."""
-    shapes = weight_names(arch)
+    shapes = weight_names(arch) if shapes is None else shapes
     with np.load(path) as flat:
         missing = [n for n in shapes if n not in flat.files]
         if missing:

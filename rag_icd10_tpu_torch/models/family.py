@@ -16,6 +16,7 @@ import torch
 
 from ..utils.metrics import metrics
 from . import deepseek_v3 as dv
+from . import kimi_linear as kl
 from .bert import BertArch, SentenceBert, init_params
 from .convert_hf import jax_leaf_order, load_params, params_from_jax, params_to_jax, save_params
 
@@ -51,22 +52,44 @@ BERT = Family(
     leaf_order=jax_leaf_order, load=lambda path, arch: load_params(path),
     save=lambda params, arch, path: save_params(params, path))
 
-FAMILIES: Dict[str, Family] = {f.model_type: f for f in (BERT, Family(
-    dv.MODEL_TYPE, dv.DeepseekV3Arch, served=False, mesh=False,
-    arch=lambda config, e, vocab_size: dv.DeepseekV3Arch.from_config(config),
-    init_params=dv.init_params, module=dv.SentenceDeepseekV3,
-    state_dict=lambda params: {k: torch.from_numpy(np.asarray(v)) for k, v in params.items()},
-    params_of=lambda model: {k: t.detach().to("cpu", torch.float32).numpy()
-                             for k, t in model.state_dict().items()},
-    leaf_order=lambda model: [(i, False) for i, _ in enumerate(model.parameters())],
-    load=dv.load_weights, save=dv.save_weights,
-    log_text="; experts held %.1f%% of slots, load max/mean %.2f; MLA kernel %.1f calls a step; "
-             "norm kernel %.1f calls a step",
-    log_reading=lambda: (metrics.counters("moe."), dv.mla_kernel_calls(),  # waits for the device
-                         dv.norm_kernel_calls()),
-    log_values=lambda before, after, steps: [*dv.moe_load(before[0], after[0]),
-                                             *((a - b) / steps for a, b in zip(after[1:],
-                                                                               before[1:]))]))}
+
+def _per_step(before, after, steps):
+    """The experts' held share and max/mean between two readings
+    (``metrics.counters("moe.")`` first), then each host counter's rise a
+    step."""
+    return [*dv.moe_load(before[0], after[0]),
+            *((a - b) / steps for a, b in zip(after[1:], before[1:]))]
+
+
+def _decoder(module, arch_type, sentence, log_text, log_reading) -> Family:
+    """A decoder family: one device, not served, the model ``sentence``, its
+    checkpoint one ``.npz`` in the published names (``module``'s
+    ``init_params``, ``load_weights``, ``save_weights``)."""
+    return Family(
+        module.MODEL_TYPE, arch_type, served=False, mesh=False,
+        arch=lambda config, e, vocab_size: arch_type.from_config(config),
+        init_params=module.init_params, module=sentence,
+        state_dict=lambda params: {k: torch.from_numpy(np.asarray(v)) for k, v in params.items()},
+        params_of=lambda model: {k: t.detach().to("cpu", torch.float32).numpy()
+                                 for k, t in model.state_dict().items()},
+        leaf_order=lambda model: [(i, False) for i, _ in enumerate(model.parameters())],
+        load=module.load_weights, save=module.save_weights, log_text=log_text,
+        log_reading=log_reading, log_values=_per_step)
+
+
+EXPERTS_TEXT = "; experts held %.1f%% of slots, load max/mean %.2f"
+KERNELS_TEXT = "; MLA kernel %.1f calls a step; norm kernel %.1f calls a step"
+
+FAMILIES: Dict[str, Family] = {f.model_type: f for f in (
+    BERT,
+    _decoder(dv, dv.DeepseekV3Arch, dv.SentenceDeepseekV3, EXPERTS_TEXT + KERNELS_TEXT,
+             lambda: (metrics.counters("moe."), dv.mla_kernel_calls(),  # waits for the device
+                      dv.norm_kernel_calls())),
+    _decoder(kl, kl.KimiLinearArch, kl.SentenceKimiLinear,
+             EXPERTS_TEXT + "; KDA core %.1f calls a step" + KERNELS_TEXT,
+             lambda: (metrics.counters("moe."), kl.kda_core_calls(), dv.mla_kernel_calls(),
+                      dv.norm_kernel_calls())),
+)}
 
 
 def beside(path: Optional[str]) -> Tuple[Family, Dict]:

@@ -1,6 +1,7 @@
 // The residual add and RMSNorm of the decoder block on Hopper (sm_90a):
-// models/deepseek_v3.py's RMSNorms, each with the residual add before it and
-// its consumers' casts of its output, forward and backward.
+// models/deepseek_v3.py's RMSNorms (and models/kimi_linear.py's, the same
+// modules), each with the residual add before it and its consumers' casts of
+// its output, forward and backward.
 //
 // Replaces no kernel of the JAX package, which has no decoder. Added because
 // the plain chain (ops/rms_norm.py add_rms_norm_reference) runs an fp32 add,
@@ -9,7 +10,7 @@
 // site), and autograd replays about ten elementwise and reduce kernels for it
 // in the backward.
 //
-// Computes, for rows of width W (2048 hidden, 512 latent):
+// Computes, for rows of width W (2048 and 2304 hidden, 512 latent):
 //   x_new = x + branch          (fp32; only where there is a branch)
 //   rstd  = rsqrt(mean(x_new^2) + eps), one fp32 value a row
 //   y     = weight * (x_new * rstd), written once as fp32 and once as bf16
@@ -31,8 +32,9 @@
 // Design:
 // - A row lives in registers, 8 consecutive elements a thread (one 16-byte
 //   access of bf16, two of fp32), W / 8 threads a row: a block of 256
-//   threads holds one row of 2048 or four rows of 512. Each input is read
-//   once a pass and each output written once.
+//   threads holds one row of 2048 or four rows of 512, and a row of 2304
+//   takes a block of its own 288 threads (9 warps). Each input is read once a
+//   pass and each output written once.
 // - The row's sums in fp32: warp shuffles, then the row's warps in order
 //   through shared memory.
 // - Forward: one block a group of rows (T / rows-a-block blocks).
@@ -80,6 +82,13 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr int THREADS = 256;
+
+// A block's threads at width W: 256, or one row's W / 8 where that is more.
+template <int W>
+struct Block {
+  static constexpr int threads = W / 8 > THREADS ? W / 8 : THREADS;
+  static constexpr int rows = threads / (W / 8);
+};
 
 __device__ __forceinline__ void load8(const float* p, float v[8]) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];
@@ -138,9 +147,9 @@ __device__ __forceinline__ float row_sum(float s, float* red) {
 }  // namespace
 
 template <int W, typename TX, typename TB>
-__global__ void __launch_bounds__(THREADS) rms_norm_fwd(NormArgs a) {
-  constexpr int TPR = W / 8, RPB = THREADS / TPR, WPR = TPR / 32;
-  __shared__ float red[THREADS / 32];
+__global__ void __launch_bounds__(Block<W>::threads) rms_norm_fwd(NormArgs a) {
+  constexpr int TPR = W / 8, RPB = Block<W>::rows, WPR = TPR / 32;
+  __shared__ float red[Block<W>::threads / 32];
   const int c = threadIdx.x % TPR * 8;
   const long long row = (long long)blockIdx.x * RPB + threadIdx.x / TPR;
   const bool live = row < a.rows;
@@ -168,9 +177,9 @@ __global__ void __launch_bounds__(THREADS) rms_norm_fwd(NormArgs a) {
 }
 
 template <int W, typename TX, typename TB>
-__global__ void __launch_bounds__(THREADS) rms_norm_bwd(NormArgs a) {
-  constexpr int TPR = W / 8, RPB = THREADS / TPR, WPR = TPR / 32;
-  __shared__ float red[2][THREADS / 32];
+__global__ void __launch_bounds__(Block<W>::threads) rms_norm_bwd(NormArgs a) {
+  constexpr int BT = Block<W>::threads, TPR = W / 8, RPB = Block<W>::rows, WPR = TPR / 32;
+  __shared__ float red[2][BT / 32];
   __shared__ float part[RPB][W];
   const int grp = threadIdx.x / TPR, c = threadIdx.x % TPR * 8;
   float w[8], acc[8] = {};
@@ -207,7 +216,7 @@ __global__ void __launch_bounds__(THREADS) rms_norm_bwd(NormArgs a) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) part[grp][c + j] = acc[j];
   __syncthreads();
-  for (int col = threadIdx.x; col < W; col += THREADS) {
+  for (int col = threadIdx.x; col < W; col += BT) {
     float s = 0.0f;
 #pragma unroll
     for (int i = 0; i < RPB; ++i) s += part[i][col];
@@ -237,15 +246,15 @@ namespace {
 
 template <int W, typename TX, typename TB>
 cudaError_t run(int kind, const NormArgs& a, int parts, float* dw, cudaStream_t st) {
-  constexpr int RPB = THREADS / (W / 8);
+  constexpr int BT = Block<W>::threads, RPB = Block<W>::rows;
   if (kind == 0) {
     const long long blocks = (a.rows + RPB - 1) / RPB;
     if (blocks > 0x7fffffffll) return cudaErrorInvalidValue;
-    rms_norm_fwd<W, TX, TB><<<(unsigned)blocks, THREADS, 0, st>>>(a);
+    rms_norm_fwd<W, TX, TB><<<(unsigned)blocks, BT, 0, st>>>(a);
     return cudaGetLastError();
   }
   if (parts < 1 || (long long)parts * RPB > a.rows + RPB - 1) return cudaErrorInvalidValue;
-  rms_norm_bwd<W, TX, TB><<<parts, THREADS, 0, st>>>(a);
+  rms_norm_bwd<W, TX, TB><<<parts, BT, 0, st>>>(a);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   rms_norm_dw<<<W / 32, 256, 0, st>>>(a.partial, parts, W, dw);
@@ -258,7 +267,8 @@ int wave() {
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, rms_norm_bwd<W, TX, TB>, THREADS, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, rms_norm_bwd<W, TX, TB>,
+                                                        Block<W>::threads, 0);
   return err == cudaSuccess ? sms * per : -static_cast<int>(err);
 }
 
@@ -274,6 +284,9 @@ extern "C" int rms_norm_wave(int width, int x_bf16, int branch_bf16) {
   if (width == 512)
     return x_bf16 ? wave<512, bf16, bf16>()
                   : branch_bf16 ? wave<512, float, bf16>() : wave<512, float, float>();
+  if (width == 2304)
+    return x_bf16 ? wave<2304, bf16, bf16>()
+                  : branch_bf16 ? wave<2304, float, bf16>() : wave<2304, float, float>();
   return -static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -304,6 +317,10 @@ extern "C" int rms_norm_launch(int kind, int width, int x_bf16, int branch_bf16,
     err = x_bf16 ? run<512, bf16, bf16>(kind, a, parts, fw, st)
                  : branch_bf16 ? run<512, float, bf16>(kind, a, parts, fw, st)
                                : run<512, float, float>(kind, a, parts, fw, st);
+  else if (width == 2304)
+    err = x_bf16 ? run<2304, bf16, bf16>(kind, a, parts, fw, st)
+                 : branch_bf16 ? run<2304, float, bf16>(kind, a, parts, fw, st)
+                               : run<2304, float, float>(kind, a, parts, fw, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -20,9 +20,9 @@ fp32 ``rstd`` a row for the backward. A bf16 consumer's gradient thus
 reaches the backward kernel on its own and the sum is taken there in fp32,
 as autograd sums the gradients of the plain chain's casts; one bf16 ``y``
 shared by two consumers would add their gradients in bf16. They take
-widths 2048 and 512 (Moonlight's hidden size and kv rank), fp32 ``x`` with
-a bf16 or fp32 branch or none, bf16 ``x`` with none, and an fp32 output and
-up to two bf16 ones. The source's note says what bounds them (the bytes)
+widths 2048, 2304 and 512 (Moonlight's and Kimi-Linear's hidden sizes, and
+the kv rank of both), fp32 ``x`` with a bf16 or fp32 branch or none, bf16
+``x`` with none, and an fp32 output and up to two bf16 ones. The source's note says what bounds them (the bytes)
 and what their design does about it. Built by ``ops/cuda_build.py`` at the
 first call, never at import.
 """
@@ -39,7 +39,7 @@ from . import cuda_build
 
 _launch_lock = threading.Lock()
 
-WIDTHS = (2048, 512)  # the widths the kernels are built for
+WIDTHS = (2048, 2304, 512)  # the widths the kernels are built for
 THREADS = 256  # a block's threads, each holding 8 elements of a row
 
 
@@ -211,7 +211,7 @@ class _AddRMSNorm(torch.autograd.Function):
         dbranch = (None if ctx.branch_dtype is None else
                    torch.empty(saved.shape, dtype=ctx.branch_dtype, device=saved.device))
         rows = saved.numel() // width
-        per_block = THREADS // (width // 8)
+        per_block = max(1, THREADS // (width // 8))  # a wider row takes a block of its own
         parts = min(-(-rows // per_block),
                     _wave(saved.device.index, width, saved.dtype == torch.bfloat16,
                           ctx.branch_dtype != torch.float32))

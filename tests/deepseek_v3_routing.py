@@ -14,11 +14,12 @@ from rag_icd10_tpu_torch.models import deepseek_v3 as dv
 
 
 @contextlib.contextmanager
-def held_to_reference(w, calls, cfg):
+def held_to_reference(w, calls, cfg, hidden=None):
     """While open, every ``Router`` of the program returns the experts the
-    reference (``tests/reference_deepseek_v3.py``, over ``w`` and ``cfg``)
-    chose for the same tokens, with the program's own weights of them.
-    ``calls``: the ids of each of the program's model calls, in order.
+    reference (``tests/reference_deepseek_v3.py``, over ``w`` and ``cfg``;
+    ``hidden``: another reference's forward that routes through its
+    ``route``) chose for the same tokens, with the program's own weights of
+    them. ``calls``: the ids of each of the program's model calls, in order.
     Yields the list of the program's own choices, filled as it runs."""
     picks, chosen, route, forward = [], [], ref.route, dv.Router.forward
 
@@ -29,7 +30,7 @@ def held_to_reference(w, calls, cfg):
 
     with torch.no_grad(), mock.patch.object(ref, "route", record):
         for ids in calls:
-            ref.hidden(w, ids, cfg)
+            (hidden or ref.hidden)(w, ids, cfg)
 
     def held(self, x):
         idx, _ = forward(self, x)

@@ -14,7 +14,16 @@ place as the first 512 of 576 bf16 columns; outputs as the consumers take
 them (two bf16 copies for q_proj and kv_a_proj_with_mqa or gate_proj and
 up_proj; fp32 for an expert layer's router, gather and shared experts, or
 the pooling); the most a site may ask for (one fp32 output and two bf16);
-and the tests' fp32 model. Inputs are seeded normals, weights near 1.
+and the tests' fp32 model. The Kimi cell's seven sites at its hidden width,
+2304 (a block of 288 threads a row), named by the layer that reads them:
+layer 1's input (the embedding, no branch; one bf16 copy for the delta
+rule's six projections), its dense MLP's input (the delta rule's bf16
+output added; two bf16), layer 2's input (the dense MLP's bf16 output
+added; one bf16), each expert layer's input (a bf16 branch; fp32 out),
+the delta rule's input after an expert layer (an fp32 branch; one bf16),
+the latent attention's input after one (an fp32 branch; two bf16), and
+the final norm (an fp32 branch; fp32 out). Inputs are seeded normals,
+weights near 1.
 
 Tolerances, each with its reason (max |difference| over max |plain|):
 
@@ -51,7 +60,15 @@ SITES = {  # name: (width, x dtype, branch dtype, outputs, x read in place from 
     "fp32_hidden": (2048, F32, F32, (F32, F32), False),
     "fp32_latent": (LATENT, F32, None, (F32,), True),
     "fp32_and_two_bf16": (2048, F32, F32, (F32, BF, BF), False),
-}
+} | {f"kimi_{name}": site for name, site in {  # the Kimi cell's, at 2304
+    "embedding": (2304, F32, None, (BF,), False),
+    "dense_mlp_input": (2304, F32, BF, (BF, BF), False),
+    "after_dense_mlp": (2304, F32, BF, (BF,), False),
+    "expert_input": (2304, F32, BF, (F32,), False),
+    "delta_rule_after_experts": (2304, F32, F32, (BF,), False),
+    "mla_after_experts": (2304, F32, F32, (BF, BF), False),
+    "final_norm": (2304, F32, F32, (F32,), False),
+}.items()}
 
 
 @pytest.fixture(scope="module")
@@ -125,7 +142,7 @@ def test_kernel_against_plain_version(cuda, site):
         assert gap <= _tolerance(name, got[name]), name
 
 
-@pytest.mark.parametrize("width", [2048, LATENT])
+@pytest.mark.parametrize("width", [2048, 2304, LATENT])
 def test_rstd_is_the_plain_reciprocal_root(cuda, width):
     """The forward's rstd (one fp32 value a row, saved for the backward)."""
     x = torch.randn(*T_ROWS, width, device=cuda)

@@ -8,8 +8,9 @@ which the training tool and step reach a model.
   up by the ``model_type`` beside it, load, ``init_train_state``,
   ``params()``.
 - The lookup keeps the rule: no ``config.json``, or one without
-  ``model_type``, or ``"bert"``, is BERT; ``"deepseek_v3"`` the decoder;
-  any other ``model_type`` raises ``ValueError`` naming the known ones.
+  ``model_type``, or ``"bert"``, is BERT; ``"deepseek_v3"`` and
+  ``"kimi_linear"`` the decoders; any other ``model_type`` raises
+  ``ValueError`` naming the known ones.
 """
 
 import ast
@@ -23,6 +24,7 @@ import torch
 from rag_icd10_tpu_torch.config import EncoderConfig
 from rag_icd10_tpu_torch.models import deepseek_v3 as dv
 from rag_icd10_tpu_torch.models import family as model_family
+from rag_icd10_tpu_torch.models import kimi_linear as kl
 from rag_icd10_tpu_torch.models.bert import BertArch
 from rag_icd10_tpu_torch.parallel.train import init_train_state
 
@@ -31,7 +33,8 @@ torch.set_num_threads(2)  # the suite runs several test processes at once
 ROOT = Path(__file__).resolve().parents[1]
 SEAM_USERS = ("rag_icd10_tpu_torch/tools/train_encoder.py",
               "rag_icd10_tpu_torch/parallel/train.py")
-DECODER_NAMES = {"DeepseekV3Arch", "MODEL_TYPE", "deepseek_v3"}
+DECODER_MODULES = ("deepseek_v3", "kimi_linear")
+DECODER_NAMES = {"DeepseekV3Arch", "KimiLinearArch", "MODEL_TYPE", *DECODER_MODULES}
 
 WIDTHS = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=4, intermediate_size=64,
               max_position_embeddings=16)
@@ -42,6 +45,13 @@ DECODER_SMALL = dict(
     q_lora_rank=None, qk_nope_head_dim=8, qk_rope_head_dim=4, v_head_dim=8,
     n_routed_experts=8, num_experts_per_tok=2, n_shared_experts=1, first_k_dense_replace=1,
     max_position_embeddings=32, experts_held=[2, 3, 4])
+KIMI_SMALL = dict(
+    model_type="kimi_linear", vocab_size=80, hidden_size=32, intermediate_size=64,
+    moe_intermediate_size=16, num_hidden_layers=2, num_attention_heads=2, kv_lora_rank=16,
+    q_lora_rank=None, qk_nope_head_dim=8, qk_rope_head_dim=4, v_head_dim=8, num_experts=8,
+    num_experts_per_token=2, num_shared_experts=1, first_k_dense_replace=1, mla_use_nope=True,
+    linear_attn_config=dict(kda_layers=[1], full_attn_layers=[2], head_dim=8, num_heads=2,
+                            short_conv_kernel_size=4), experts_held=[2, 3, 4])
 
 
 def _flat(tree, prefix=""):
@@ -59,16 +69,16 @@ def test_tool_and_step_name_no_family_but_through_the_seam(path):
     for node in ast.walk(tree):
         if isinstance(node, ast.ImportFrom):
             modules = [node.module or ""] + [f"{node.module or ''}.{a.name}" for a in node.names]
-            if any(m.split(".")[-1] == "deepseek_v3" for m in modules):
+            if any(m.split(".")[-1] in DECODER_MODULES for m in modules):
                 found.append(f"{node.lineno}: from {node.module} import ...")
         elif isinstance(node, ast.Import):
             found += [f"{node.lineno}: import {a.name}" for a in node.names
-                      if "deepseek_v3" in a.name.split(".")]
+                      if set(DECODER_MODULES) & set(a.name.split("."))]
         elif isinstance(node, ast.Name) and node.id in DECODER_NAMES:
             found.append(f"{node.lineno}: {node.id}")
         elif isinstance(node, ast.Attribute) and node.attr in DECODER_NAMES:
             found.append(f"{node.lineno}: .{node.attr}")
-        elif isinstance(node, ast.Constant) and node.value == "deepseek_v3":
+        elif isinstance(node, ast.Constant) and node.value in DECODER_MODULES:
             found.append(f"{node.lineno}: {node.value!r}")
     assert not found, f"{path} names the decoder: {found}"
 
@@ -77,9 +87,9 @@ def _bert_case():
     return BERT_TINY, model_family.BERT.init_params(BERT_TINY, seed=4), _flat
 
 
-def _decoder_case():
-    arch = dv.DeepseekV3Arch.from_config(DECODER_SMALL)
-    params = dv.init_params(arch, seed=4)
+def _decoder_case(module=dv, arch_type=dv.DeepseekV3Arch, config=DECODER_SMALL):
+    arch = arch_type.from_config(config)
+    params = module.init_params(arch, seed=4)
     rng = np.random.default_rng(5)
     for k, v in params.items():  # biases and norms away from their init
         if v.ndim == 1:
@@ -87,8 +97,13 @@ def _decoder_case():
     return arch, params, dict
 
 
+def _kimi_case():
+    return _decoder_case(kl, kl.KimiLinearArch, KIMI_SMALL)
+
+
 @pytest.mark.parametrize("model_type,case", [("bert", _bert_case),
-                                             ("deepseek_v3", _decoder_case)])
+                                             ("deepseek_v3", _decoder_case),
+                                             ("kimi_linear", _kimi_case)])
 def test_checkpoint_round_trip_through_the_seam(tmp_path, model_type, case):
     arch, params, flat = case()
     path = str(tmp_path / "ckpt" / "params.npz")
@@ -113,7 +128,8 @@ def test_checkpoint_round_trip_through_the_seam(tmp_path, model_type, case):
 
 @pytest.mark.parametrize("config,model_type", [
     (None, "bert"), ({}, "bert"), ({"hidden_size": 768}, "bert"),
-    ({"model_type": "bert"}, "bert"), (DECODER_SMALL, "deepseek_v3")])
+    ({"model_type": "bert"}, "bert"), (DECODER_SMALL, "deepseek_v3"),
+    (KIMI_SMALL, "kimi_linear")])
 def test_lookup_keeps_the_rule(tmp_path, config, model_type):
     if config is not None:
         (tmp_path / "config.json").write_text(json.dumps(config))
@@ -127,7 +143,7 @@ def test_no_checkpoint_is_bert():
 
 def test_an_unclaimed_model_type_names_the_known_ones(tmp_path):
     (tmp_path / "config.json").write_text(json.dumps({"model_type": "llama"}))
-    with pytest.raises(ValueError, match="'llama'.*bert, deepseek_v3"):
+    with pytest.raises(ValueError, match="'llama'.*bert, deepseek_v3, kimi_linear"):
         model_family.beside(str(tmp_path / "params.npz"))
 
 
@@ -136,6 +152,9 @@ def test_capabilities():
     assert bert.served and bert.mesh
     assert not decoder.served and not decoder.mesh
     assert model_family.of_arch(dv.DeepseekV3Arch()) is decoder
+    kimi = model_family.FAMILIES["kimi_linear"]
+    assert not kimi.served and not kimi.mesh
+    assert model_family.of_arch(kl.KimiLinearArch()) is kimi
     assert bert.log_text == "" and bert.log_values(bert.log_reading(), None, 1) == []
 
 
@@ -149,3 +168,18 @@ def test_decoder_log_values_are_the_interval_s():
     assert decoder.log_text % (share, load, calls, norm_calls) == (
         "; experts held 40.0% of slots, load max/mean 6.00; MLA kernel 5.0 calls a step; "
         "norm kernel 16.0 calls a step")
+
+
+def test_kimi_log_values_are_the_interval_s():
+    """The Kimi decoder's --log-every fields: the experts' held share and
+    max/mean, then the delta-rule core's, the MLA kernel's and the norm
+    kernel's calls a step."""
+    held = np.array([0, 0, 3, 1, 0, 0, 0, 0])
+    before = ({"moe.held_slots.1": np.zeros(8), "moe.routed_slots.1": np.asarray(0)}, 8, 7, 16)
+    after = ({"moe.held_slots.1": held, "moe.routed_slots.1": np.asarray(10)}, 40, 15, 112)
+    kimi = model_family.FAMILIES["kimi_linear"]
+    values = kimi.log_values(before, after, 4)
+    assert values == [40.0, 3 / 0.5, 8.0, 2.0, 24.0]
+    assert kimi.log_text % tuple(values) == (
+        "; experts held 40.0% of slots, load max/mean 6.00; KDA core 8.0 calls a step; "
+        "MLA kernel 2.0 calls a step; norm kernel 24.0 calls a step")
