@@ -3237,13 +3237,133 @@ def norm_phase() -> list:
     return rows
 
 
-def step_launches(model, vocab: int, want: dict) -> dict:
-    """One forward of 512 rows of 48 positions and one of 256 of 96 through
-    ``model``, one backward through both: the MLA and add + RMSNorm
-    kernels' launches and forward calls, and the delta-rule core's forward
-    calls, each counted from zero just before the step, held to ``want``."""
+KDA_HEADS, KDA_HEAD = 32, 128  # Kimi-Linear-48B-A3B's delta-rule heads
+
+
+def kda_flops(s: int) -> tuple:
+    """fp32 operations of one (row, head) of the delta rule at length ``s``,
+    forward and backward, over the kernels' chunks of 48 (each chunk's valid
+    tokens c): A and P (2 c^2 d), the solve (c (c - 1) d), P U (c (c + 1) d);
+    past the first chunk the incoming state's two products (4 c d^2), before
+    the last the outgoing state's (2 c d^2). The backward: A and P again, the
+    solve again, P^T dO, the back substitution, dA and dP, the decayed pair
+    sums through A and P (4 c^2 d); the incoming state's R, dS0 and dQ, dK
+    terms (10 c d^2), the outgoing state's dU and dK terms (4 c d^2)."""
+    d, fwd, bwd = KDA_HEAD, 0.0, 0.0
+    sizes = [min(48, s - i) for i in range(0, s, 48)]
+    for i, c in enumerate(sizes):
+        pairs = 2 * c * c * d + c * (c - 1) * d + c * (c + 1) * d
+        fwd += pairs + (4 * c * d * d if i else 0) + (2 * c * d * d if i + 1 < len(sizes) else 0)
+        bwd += (pairs + c * (c - 1) * d + 6 * c * c * d + (10 * c * d * d if i else 0)
+                + (4 * c * d * d if i + 1 < len(sizes) else 0))
+    return fwd, bwd
+
+
+def kda_bound_ms(b: int, s: int) -> tuple:
+    """Least time of one forward and one backward call of the delta rule at
+    B x S, 32 heads: each call's inputs read once and outputs written once
+    (q, k, v bf16; g, beta, o, dO fp32; the states at the chunk boundaries,
+    dS between them), or its fp32 products at 67 TFLOP/s, the larger."""
+    t, bh, d = b * s, b * KDA_HEADS, KDA_HEAD
+    x = t * KDA_HEADS * d
+    boundaries = bh * (-(-s // 48) - 1) * d * d * 4
+    fwd_bytes = x * (3 * 2 + 4 + 4) + t * KDA_HEADS * 4 + boundaries
+    bwd_bytes = x * (3 * 2 + 4 + 4) + t * KDA_HEADS * 4 + boundaries * 3 \
+        + x * (3 * 2 + 4) + t * KDA_HEADS * 4
+    fwd_ops, bwd_ops = (bh * f for f in kda_flops(s))
+    return bound_ms(fwd_bytes, fwd_ops, "fp32"), bound_ms(bwd_bytes, bwd_ops, "fp32")
+
+
+def kda_phase() -> list:
+    """The delta rule's kernels (M3) at the Kimi cell's two shapes, q, k, v
+    bf16 in the short convolutions' layout: held against the plain version
+    (the card tests' limits), timed beside their bound and the plain
+    version, with each side's peak memory over one forward and backward."""
     import torch
 
+    sys.path.insert(0, str(ROOT))
+    from rag_icd10_tpu_torch.ops import kda as kda_op
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    for b, s in MLA_SHAPES:
+        gen = torch.Generator(device=DEVICE).manual_seed(s)
+        h, d = KDA_HEADS, KDA_HEAD
+
+        def conv(*_):
+            t = torch.randn(b, h * d, s, generator=gen, device=DEVICE).to(torch.bfloat16)
+            return t.transpose(1, 2).unflatten(-1, (h, d)).requires_grad_(True)
+
+        q, k, v = conv(), conv(), conv()
+        g = (-torch.rand(b, s, h, d, generator=gen, device=DEVICE)
+             * torch.logspace(-2, 1, h, device=DEVICE)[:, None]).requires_grad_(True)
+        beta = torch.rand(b, s, h, generator=gen, device=DEVICE).requires_grad_(True)
+        d_o = torch.randn(b, s, h, d, generator=gen, device=DEVICE)
+        leaves = (q, k, v, g, beta)
+
+        def step(fn, backward=True):
+            for t in leaves:
+                t.grad = None
+            o = fn(*leaves)
+            if backward:
+                o.backward(d_o)
+            return o
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = step(kda_op.kda).detach()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        got_g = [t.grad.clone() for t in leaves]
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        want = step(kda_op.kda_reference).detach()
+        torch.cuda.synchronize()
+        plain_peak = torch.cuda.max_memory_allocated() - base
+        largest = max(float(t.grad.abs().max()) for t in leaves)
+        errs = {"o": max_err(got, want) / want.abs().max().item()}
+        for name, a, t in zip(("dq", "dk", "dv", "dg", "dbeta"), got_g, leaves):
+            errs[name] = max_err(a.float(), t.grad.float()) / max(
+                t.grad.float().abs().max().item(), 1e-3 * largest)
+        check(errs["o"] <= 2e-5 and max(errs[n] for n in ("dq", "dk", "dv")) <= 2 ** -7
+              and max(errs["dg"], errs["dbeta"]) <= 1e-4,
+              f"kda kernels against the plain version at B {b} S {s}: {errs}")
+        (fwd_bound, fwd_by), (bwd_bound, bwd_by) = kda_bound_ms(b, s)
+        launches = kda_op.kda.launches
+        step(kda_op.kda)
+        row = {
+            "B": b, "S": s, "heads": h, "d": d, "max_rel_err": errs,
+            "launches_per_step": kda_op.kda.launches - launches,
+            "fwd_device_ms": device_ms(lambda: step(kda_op.kda, backward=False)),
+            "device_ms": device_ms(lambda: step(kda_op.kda)),
+            "host_ms": host_ms(lambda: step(kda_op.kda)),
+            "kda_bound_ms": fwd_bound + bwd_bound, "bound_by": f"{fwd_by} + {bwd_by}",
+            "fwd_bound_ms": fwd_bound,
+            "plain_fwd_device_ms": device_ms(lambda: step(kda_op.kda_reference, backward=False),
+                                             reps=5),
+            "plain_device_ms": device_ms(lambda: step(kda_op.kda_reference), reps=5),
+            "peak_gb": peak / 1e9, "plain_peak_gb": plain_peak / 1e9,
+            "kernels": kernel_split(lambda: step(kda_op.kda)),
+        }
+        row["ratio"] = row["device_ms"] / row["kda_bound_ms"]
+        row["fwd_ratio"] = row["fwd_device_ms"] / row["fwd_bound_ms"]
+        rows.append(row)
+        print("M3 " + json.dumps(row), flush=True)
+        del q, k, v, g, beta, d_o, got, got_g, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def step_launches(model, vocab: int, want: dict) -> dict:
+    """One forward of 512 rows of 48 positions and one of 256 of 96 through
+    ``model``, one backward through both: the MLA, add + RMSNorm and
+    delta-rule kernels' launches and forward calls, and the delta-rule
+    core's forward calls, each counted from zero just before the step, held
+    to ``want``."""
+    import torch
+
+    from rag_icd10_tpu_torch.ops import kda as kda_op
     from rag_icd10_tpu_torch.ops import mla_attention as mla
     from rag_icd10_tpu_torch.ops import rms_norm
     from rag_icd10_tpu_torch.utils.metrics import metrics
@@ -3251,7 +3371,7 @@ def step_launches(model, vocab: int, want: dict) -> dict:
     gen = torch.Generator(device=DEVICE).manual_seed(5)
     calls = [torch.randint(1, vocab, (b, s), generator=gen, device=DEVICE) for b, s in MLA_SHAPES]
     torch.cuda.synchronize()
-    mla.mla_attention.launches = rms_norm.add_rms_norm.launches = 0
+    mla.mla_attention.launches = rms_norm.add_rms_norm.launches = kda_op.kda.launches = 0
     before = metrics.counters()
     loss = 0.0
     for ids in calls:
@@ -3266,7 +3386,8 @@ def step_launches(model, vocab: int, want: dict) -> dict:
     found = {k: {"launches": launches, "kernel_calls": rise(f"{k}.kernel_calls")}
              for k, launches in (("mla", mla.mla_attention.launches),
                                  ("norm", rms_norm.add_rms_norm.launches))}
-    found["kda"] = {"core_calls": rise("kda.core_calls")}
+    found["kda"] = {"launches": kda_op.kda.launches, "kernel_calls": rise("kda.kernel_calls"),
+                    "core_calls": rise("kda.core_calls")}
     return found
 
 
@@ -3278,7 +3399,8 @@ def decoder_step_launches() -> dict:
     forward calls (11 hidden-width sites and 5 latent a call), 96
     launches. Kimi-Linear-48B-A3B's, 5 layers (delta rule x3, latent
     attention without rotation, delta rule): MLA 2 and 6; add + RMSNorm 24
-    (11 sites at 2304 and 1 latent a call) and 72; the delta-rule core 8."""
+    (11 sites at 2304 and 1 latent a call) and 72; the delta-rule core 8
+    calls, each through its kernels (M3: 8 forward calls, 16 launches)."""
     import torch
 
     sys.path.insert(0, str(ROOT))
@@ -3309,10 +3431,12 @@ def decoder_step_launches() -> dict:
     for name, make, arch, want in (
             ("moonlight", dv.SentenceDeepseekV3, moonlight,
              {"mla": {"launches": 30, "kernel_calls": 10},
-              "norm": {"launches": 96, "kernel_calls": 32}, "kda": {"core_calls": 0}}),
+              "norm": {"launches": 96, "kernel_calls": 32},
+              "kda": {"launches": 0, "kernel_calls": 0, "core_calls": 0}}),
             ("kimi_linear", kl.SentenceKimiLinear, kimi,
              {"mla": {"launches": 6, "kernel_calls": 2},
-              "norm": {"launches": 72, "kernel_calls": 24}, "kda": {"core_calls": 8}})):
+              "norm": {"launches": 72, "kernel_calls": 24},
+              "kda": {"launches": 16, "kernel_calls": 8, "core_calls": 8}})):
         with torch.device(DEVICE):
             model = make(arch)
         found[name] = step_launches(model, arch.vocab_size, want)
@@ -3395,6 +3519,7 @@ def main() -> int:
     main_path["K1"]["launches_by_path"]["ner_train"] = ner_train["serve"]["k1_launches"]
     mla_rows = mla_phase()
     norm_rows = norm_phase()
+    kda_rows = kda_phase()
     decoder_step = decoder_step_launches()
     check(jax_before or sys.modules.get("jax") is None, "the port imported JAX")
     check(not any(m == "rag_icd10_tpu" or m.startswith("rag_icd10_tpu.")
@@ -3445,6 +3570,14 @@ def main() -> int:
         "replaces": None,
         "main_shapes": norm_rows,
         "launches_by_path": {f"{m}_train_step": decoder_step[m]["norm"] for m in decoder_step},
+    })
+    kernels.append({
+        "name": "kda (kda_fwd, kda_bwd)",
+        "route": "cuda",
+        "source": "rag_icd10_tpu_torch/ops/csrc/kda.cu",
+        "replaces": None,
+        "main_shapes": kda_rows,
+        "launches_by_path": {f"{m}_train_step": decoder_step[m]["kda"] for m in decoder_step},
     })
     e2e["sketch_1M"] = sketch_large
     print("e2e " + json.dumps(e2e), flush=True)

@@ -86,9 +86,9 @@ FAMILIES: Dict[str, Family] = {f.model_type: f for f in (
              lambda: (metrics.counters("moe."), dv.mla_kernel_calls(),  # waits for the device
                       dv.norm_kernel_calls())),
     _decoder(kl, kl.KimiLinearArch, kl.SentenceKimiLinear,
-             EXPERTS_TEXT + "; KDA core %.1f calls a step" + KERNELS_TEXT,
-             lambda: (metrics.counters("moe."), kl.kda_core_calls(), dv.mla_kernel_calls(),
-                      dv.norm_kernel_calls())),
+             EXPERTS_TEXT + "; KDA core %.1f calls a step, kernel %.1f" + KERNELS_TEXT,
+             lambda: (metrics.counters("moe."), kl.kda_core_calls(), kl.kda_kernel_calls(),
+                      dv.mla_kernel_calls(), dv.norm_kernel_calls())),
 )}
 
 

@@ -40,7 +40,8 @@ Spans (utils/metrics.py), nested under whatever span the caller holds:
 output added in it, and its token mixer), inside it ``kda.core`` (from the
 convolutions' q, k, v and the decay and beta to o before ``o_norm``),
 ``mla`` for the latent-attention layers and the expert layers' ``moe.*``.
-Counters: ``kda.core_calls`` (the core's forward calls) beside
+Counters: ``kda.core_calls`` (the core's forward calls) and
+``kda.kernel_calls`` (those that launched its kernel, on a card) beside
 ``models/deepseek_v3.py``'s.
 
 Weights are one ``.npz`` in the checkpoint's parameter names, with its
@@ -244,9 +245,10 @@ class KimiDeltaAttention(nn.Module):
         """``x`` (B, S, H) in the compute dtype -> (B, S, H). The tables are
         the latent attention's: the delta rule takes no positions. The
         rule's inputs (convolutions, decay, beta) and its gated output norm
-        run under non-reentrant checkpoints, as the rule itself does: the
-        backward recomputes them from the projections' output, which is
-        kept, rather than keep their fp32 intermediates."""
+        run under non-reentrant checkpoints: the backward recomputes them
+        from the projections' output, which is kept, rather than keep their
+        fp32 intermediates. The rule itself keeps its inputs (and, on a card,
+        its states at the chunk boundaries; ops/kda.py)."""
         dt = self.arch.compute_dtype
         projs = (self.q_proj, self.k_proj, self.v_proj, self.f_a_proj, self.b_proj,
                  self.g_a_proj)
@@ -351,3 +353,9 @@ save_weights = dv.save_weights  # the .npz and the arch's config.json beside it
 def kda_core_calls() -> int:
     """Forward calls of the delta-rule core so far (ops/kda.py)."""
     return int(metrics.counters("kda.").get("kda.core_calls", 0))
+
+
+def kda_kernel_calls() -> int:
+    """Forward calls of the delta-rule core that launched its kernel (on a
+    card) so far."""
+    return int(metrics.counters("kda.").get("kda.kernel_calls", 0))

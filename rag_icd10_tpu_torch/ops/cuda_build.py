@@ -27,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES: Dict[str, Path] = {
     name: CSRC / f"{name}.cu"
     for name in ("fused_score", "slot_stream", "chunk_max", "gather_rescore",
-                 "mla_attention", "rms_norm")
+                 "mla_attention", "rms_norm", "kda")
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

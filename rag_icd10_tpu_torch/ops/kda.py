@@ -10,10 +10,10 @@ scaled by d_k^-1/2, and a state S of d_k x d_v starting at 0:
 
 This token loop (the flash-linear-attention library's
 ``naive_recurrent_kda``) is the definition. It is no implementation:
-autograd would keep a state at every position. ``kda`` computes the same
-in chunks of up to ``CHUNK`` tokens, the WY form with fine-grained
-decay. Within a chunk, with Gamma_t the sum of g up to and including t
-(from the chunk's start, so never positive):
+autograd would keep a state at every position. Both versions below
+compute the same in chunks of up to ``CHUNK`` tokens, the WY form with
+fine-grained decay. Within a chunk, with Gamma_t the sum of g up to and
+including t (from the chunk's start, so never positive):
 
 - A_tj = sum_c k_tc k_jc exp(Gamma_tc - Gamma_jc) for j < t, and
   P_tj the same with q_t for j <= t;
@@ -27,32 +27,49 @@ The trap is the decay. Written as exp(Gamma_t) exp(-Gamma_j), a pair's
 weight overflows fp32 once a chunk's summed decay passes about 88 nats,
 which a head decaying a few nats a token reaches inside one chunk. So
 every exponent here is a difference Gamma_t - Gamma_j with j <= t, or a
-difference to a block boundary that lies between t and j: A and P are
-built over blocks of 16, then 4, then 1 tokens (``SUB``), each row block's
-pairs with the earlier blocks as one product whose two factors are
-scaled to the row block's first boundary, exp(Gamma_t - Gamma_r) and
-exp(Gamma_r - Gamma_j), both at most 1. A decay that underflows gives 0,
-never inf or nan. One level would do (blocks of 16, each block's own
-pairs with the exact per-channel weights exp(Gamma_t - Gamma_j)), but
-those weights are 16 x 16 x d_k numbers a block, which autograd keeps for
-the backward: counted at the Kimi cell's shapes, the backward's
-recomputation of one call would keep 18.7 GB (512 rows of 48) and 21.5 GB
-(256 of 96) in place of 11.3 and 14.0, on a cell whose peak is 71-73 of
-the card's 80 GB. The blocks of 4 and 1 keep only per-row factors.
+difference to a position that lies between t and j, never positive: a
+decay that underflows gives 0, never inf or nan.
+
+- ``kda_reference``: the plain version, torch operations. The CPU path,
+  and what the kernels are held against on the card. A and P are built over
+  blocks of 16, then 4, then 1 tokens (``SUB``), each row block's pairs
+  with the earlier blocks as one product whose two factors are scaled to
+  the row block's first boundary, exp(Gamma_t - Gamma_r) and
+  exp(Gamma_r - Gamma_j), both at most 1. One level would do (blocks of 16,
+  each block's own pairs with the exact per-channel weights
+  exp(Gamma_t - Gamma_j)), but those weights are 16 x 16 x d_k numbers a
+  block, which autograd keeps for the backward: counted at the Kimi cell's
+  shapes, the backward's recomputation of one call would keep 18.7 GB (512
+  rows of 48) and 21.5 GB (256 of 96) in place of 11.3 and 14.0. The blocks
+  of 4 and 1 keep only per-row factors. It runs under non-reentrant
+  ``torch.utils.checkpoint`` wherever a gradient is wanted: the products and
+  the solve are recomputed in the backward rather than kept (about two
+  dozen fp32 copies of k a call).
+- ``kda``: on a CPU tensor the plain version; on a CUDA tensor the
+  hand-written kernels of ``csrc/kda.cu`` (``kda_fwd``, ``kda_bwd``), bound
+  as a ``torch.autograd.Function``, or a ``ValueError`` for what they do
+  not take (``check_kernel_inputs``): d_k = d_v = 128, any S >= 1, q, k, v
+  in bf16 or fp32 (one type), g and beta in fp32. The forward reads the
+  inputs in place through their strides and writes o; it saves each row's
+  state at every chunk boundary (none at S <= 48) beside the inputs, and
+  the backward recomputes each chunk's products on chip from them: no
+  checkpoint, nothing run twice. ``kda.launches`` counts kernel launches
+  (one a forward, one a backward), and every forward call adds 1 to the
+  counter ``kda.kernel_calls`` (utils/metrics.py).
 
 Everything is fp32 (the L2 norms, the decay sums, the products, the
 solve, the state); bf16 inputs are exact in fp32. Padding is on the
 right and the rule is causal, so no valid position sees a pad: there is
-no mask. The same code runs on the CPU and on the card. The core runs
-under non-reentrant ``torch.utils.checkpoint`` wherever a gradient is
-wanted: the products and the solve are recomputed in the backward, as
-the library's kernels recompute them, rather than kept (about two dozen
-fp32 copies of k a call). Each call adds 1 to the counter
-``kda.core_calls`` (utils/metrics.py), never its recomputation.
+no mask. Each call of ``kda`` adds 1 to the counter ``kda.core_calls``,
+on either path, never for a recomputation. The kernels are built by
+``ops/cuda_build.py`` at the first call, never at import.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import threading
 from typing import Sequence
 
 import torch
@@ -60,18 +77,38 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..utils.metrics import metrics
+from . import cuda_build
 
 CHUNK = 48  # tokens a chunk: the size of the triangular solve
-SUB = (16, 4, 1)  # the block sizes a chunk's pairs are built over
+SUB = (16, 4, 1)  # the plain version's block sizes for a chunk's pairs
 L2_EPS = 1e-6
+HEAD = 128  # the kernels' d_k and d_v: Kimi-Linear's published head_dim
+
+_launch_lock = threading.Lock()
 
 
 def kda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
         beta: torch.Tensor) -> torch.Tensor:
     """q, k (B, S, H, d_k) and v (B, S, H, d_v) in any float type, g
     (B, S, H, d_k) the log-decay (never positive) and beta (B, S, H), both
-    fp32 -> o (B, S, H, d_v) fp32."""
+    fp32 -> o (B, S, H, d_v) fp32: the plain version on a CPU tensor, the
+    kernels on a CUDA one (``ValueError`` for what they do not take)."""
     metrics.count("kda.core_calls", 1)
+    if q.device.type == "cpu":
+        return kda_reference(q, k, v, g, beta)
+    check_kernel_inputs(q, k, v, g, beta)
+    args = (q, k, v, g, beta)
+    save = torch.is_grad_enabled() and any(t.requires_grad for t in args)
+    return _KDA.apply(*args, save)
+
+
+kda.launches = 0
+
+
+def kda_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+                  beta: torch.Tensor) -> torch.Tensor:
+    """The plain version of ``kda``, under its checkpoint where a gradient
+    is wanted."""
     args = (q, k, v, g, beta)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return checkpoint(_chunked, *args, use_reentrant=False)
@@ -163,3 +200,105 @@ def _chunked(q, k, v, g, beta):
                 + carried
     o = torch.stack(outs, 2).flatten(2, 3)[:, :, :s]  # (B, H, S, dv)
     return o.transpose(1, 2)
+
+
+# ------------------------------------------------------------------ kernels
+
+
+def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+                        beta: torch.Tensor) -> None:
+    """Raise ``ValueError`` for what the kernels do not take: q, k, v and g
+    of one shape (B, S, H, 128), beta (B, S, H), q, k and v bf16 or fp32 (one
+    type), g and beta fp32, all on one device, at least one position."""
+    if q.dim() != 4 or q.shape[-1] != HEAD:
+        raise ValueError(f"the delta-rule kernels take (B, S, H, {HEAD}) inputs; got q "
+                         f"{tuple(q.shape)}")
+    for name, t in (("k", k), ("v", v), ("g", g)):
+        if t.shape != q.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} is not q's shape {tuple(q.shape)}")
+    if beta.shape != q.shape[:3]:
+        raise ValueError(f"beta {tuple(beta.shape)} is not (B, S, H) = {tuple(q.shape[:3])}")
+    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"the delta-rule kernels take bf16 or fp32 q, k, v of one type; got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if g.dtype != torch.float32 or beta.dtype != torch.float32:
+        raise ValueError(f"the delta-rule kernels take fp32 g and beta; got {g.dtype}, "
+                         f"{beta.dtype}")
+    if len({t.device for t in (q, k, v, g, beta)}) > 1:
+        raise ValueError("the delta-rule kernels need the inputs on one device; got "
+                         f"{[str(t.device) for t in (q, k, v, g, beta)]}")
+    if q.numel() == 0:
+        raise ValueError(f"the delta-rule kernels need at least one position; got "
+                         f"{tuple(q.shape)}")
+
+
+def chunks(s: int) -> int:
+    """The kernels' chunks of ``CHUNK`` tokens at sequence length ``s``."""
+    return -(-s // CHUNK)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    fn = cuda_build.load("kda").kda_launch
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_void_p] * 9
+                   + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(kind: int, q, k, v, g, beta, o=None, states=None, dout=None, dq=None, dk=None,
+            dv=None, dg=None, dbeta=None, dstate=None) -> None:
+    """One forward (kind 0) or backward (1) of the kernels for q's type;
+    the inputs through their strides, every output contiguous."""
+    b, s, h, _ = q.shape
+    strides = [*q.stride(), *k.stride(), *v.stride(), *g.stride(), *beta.stride()]
+    packed = (ctypes.c_longlong * len(strides))(*strides)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(q.device):
+        err = _kernel()(
+            kind, int(q.dtype == torch.bfloat16), *map(ptr, (q, k, v, g, beta)),
+            ctypes.addressof(packed), *map(ptr, (o, states, dout, dq, dk, dv, dg, dbeta, dstate)),
+            b, s, h, HEAD ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"kda kernel ({'backward' if kind else 'forward'}) launch failed: "
+                           f"CUDA error {err}")
+
+
+class _KDA(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, g, beta, save):
+        b, s, h, d = q.shape
+        o = torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
+        n = chunks(s)
+        states = None
+        if save and n > 1:  # the state entering each chunk past the first, for the backward
+            states = torch.empty((b * h, n - 1, d, d), dtype=torch.float32, device=q.device)
+        _launch(0, q, k, v, g, beta, o=o, states=states)
+        with _launch_lock:
+            kda.launches += 1
+        metrics.count("kda.kernel_calls", 1)
+        ctx.save_for_backward(q, k, v, g, beta, states)
+        ctx.set_materialize_grads(False)
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, d_out):
+        if d_out is None:
+            return None, None, None, None, None, None
+        q, k, v, g, beta, states = ctx.saved_tensors
+        b, s, h, d = q.shape
+        d_out = d_out.float().contiguous()
+        dq, dk, dv = (torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+                      for _ in range(3))
+        dg = torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
+        dbeta = torch.empty((b, s, h), dtype=torch.float32, device=q.device)
+        dstate = None
+        if chunks(s) > 1:  # dS carried between chunks, one state a (row, head)
+            dstate = torch.empty((b * h, d, d), dtype=torch.float32, device=q.device)
+        _launch(1, q, k, v, g, beta, states=states, dout=d_out, dq=dq, dk=dk, dv=dv, dg=dg,
+                dbeta=dbeta, dstate=dstate)
+        with _launch_lock:
+            kda.launches += 1
+        return dq, dk, dv, dg, dbeta, None

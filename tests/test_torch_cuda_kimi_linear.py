@@ -6,11 +6,13 @@ and skip elsewhere. The file imports neither JAX nor the JAX package:
 
     python -m pytest tests/test_torch_cuda_kimi_linear.py -m gpu --noconftest -q
 
-- The delta rule (ops/kda.py) at 32 heads of 128 against the token loop
-  (tests/reference_kimi_linear.py, TF32 off) for 4 rows of 48 and 2 of
-  96, fp32 in both: outputs within 1e-4 of their largest and gradients
-  within 1e-3 of theirs (cuBLAS sums of 128- to 256-term products in
-  another order, and the decays as exponents of cumulative sums).
+- The delta rule (ops/kda.py, on a card its kernels M3) at 32 heads of 128
+  against the token loop (tests/reference_kimi_linear.py, TF32 off) for 4
+  rows of 48 and 2 of 96, fp32 in both: outputs within 1e-4 of their
+  largest and gradients within 1e-3 of theirs (sums of 128- to 256-term
+  products in another order, and the decays as exponents of cumulative
+  sums). tests/test_torch_cuda_kda.py holds the kernels against the plain
+  version.
 - The latent-attention kernels (M1) at 32 heads with the tables of no
   rotation, against their plain version on the same card, bf16: the
   context within 2^-7 and gradients within 2^-6 of their largest, the
@@ -30,9 +32,11 @@ and skip elsewhere. The file imports neither JAX nor the JAX package:
   0.025 of the larger of its norm and the median leaf's: about 3.4 times
   the widest of two runs on an H100 (0.00295, 2.67e-5, 0.0075; the two
   sides round in bf16 at other points of the chain, and the experts'
-  index_add_ sums in another order each run); the add +
+  index_add_ sums in another order each run); the plain side runs the
+  delta rule's plain version too (ops/kda.py kda_reference); the add +
   RMSNorm kernel called 12 times (2 calls x (5 hidden-width sites + 1
-  latent)), the MLA kernel twice, the delta rule twice.
+  latent)), the MLA kernel twice, the delta rule twice, each call through
+  its kernel (M3: one launch a forward, one a backward).
 """
 
 import numpy as np
@@ -204,20 +208,22 @@ def test_kimi_shaped_step_against_the_plain_chains(cuda, monkeypatch):
     with monkeypatch.context() as m:
         m.setattr(dv, "add_rms_norm", rms_norm.add_rms_norm_reference)
         m.setattr(dv, "mla_attention", mla.mla_attention_reference)
+        m.setattr(kl, "kda", kda_op.kda_reference)
         m.setattr(dv.Router, "forward", record)
         terms_p, z_p, grads_p = step()
 
     def reading():
         c = metrics.counters()
         return [int(c.get(k, 0)) for k in ("norm.kernel_calls", "mla.kernel_calls",
-                                           "kda.core_calls")]
+                                           "kda.core_calls", "kda.kernel_calls")]
 
-    before = reading()
+    before, launches = reading(), kda_op.kda.launches
     with monkeypatch.context() as m:
         m.setattr(dv.Router, "forward", replay)
         terms_k, z_k, grads_k = step()
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(reading(), before)] == [12, 2, 2]
+    assert [a - b for a, b in zip(reading(), before)] == [12, 2, 2, 2]
+    assert kda_op.kda.launches - launches == 4
     assert not picks
     norms = {k: float(g.norm()) for k, g in grads_p.items()}
     med = float(np.median(list(norms.values())))

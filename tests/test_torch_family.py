@@ -172,14 +172,15 @@ def test_decoder_log_values_are_the_interval_s():
 
 def test_kimi_log_values_are_the_interval_s():
     """The Kimi decoder's --log-every fields: the experts' held share and
-    max/mean, then the delta-rule core's, the MLA kernel's and the norm
-    kernel's calls a step."""
+    max/mean, then the delta-rule core's calls and those through its
+    kernel, the MLA kernel's and the norm kernel's calls a step."""
     held = np.array([0, 0, 3, 1, 0, 0, 0, 0])
-    before = ({"moe.held_slots.1": np.zeros(8), "moe.routed_slots.1": np.asarray(0)}, 8, 7, 16)
-    after = ({"moe.held_slots.1": held, "moe.routed_slots.1": np.asarray(10)}, 40, 15, 112)
+    before = ({"moe.held_slots.1": np.zeros(8), "moe.routed_slots.1": np.asarray(0)}, 8, 0, 7,
+              16)
+    after = ({"moe.held_slots.1": held, "moe.routed_slots.1": np.asarray(10)}, 40, 32, 15, 112)
     kimi = model_family.FAMILIES["kimi_linear"]
     values = kimi.log_values(before, after, 4)
-    assert values == [40.0, 3 / 0.5, 8.0, 2.0, 24.0]
+    assert values == [40.0, 3 / 0.5, 8.0, 8.0, 2.0, 24.0]
     assert kimi.log_text % tuple(values) == (
-        "; experts held 40.0% of slots, load max/mean 6.00; KDA core 8.0 calls a step; "
-        "MLA kernel 2.0 calls a step; norm kernel 24.0 calls a step")
+        "; experts held 40.0% of slots, load max/mean 6.00; KDA core 8.0 calls a step, "
+        "kernel 8.0; MLA kernel 2.0 calls a step; norm kernel 24.0 calls a step")

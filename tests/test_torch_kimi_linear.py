@@ -198,6 +198,63 @@ def test_the_core_counts_its_calls_and_is_recomputed_in_the_backward():
     assert metrics.counters("kda.")["kda.core_calls"] == 2
 
 
+def test_on_a_cpu_tensor_kda_is_the_plain_version():
+    """The CPU path: ``kda_reference`` to the bit, output and gradients; no
+    kernel launched or counted."""
+    inputs = _rule_inputs(50, seed=3)
+    ours = [t.clone().requires_grad_(True) for t in inputs]
+    theirs = [t.clone().requires_grad_(True) for t in inputs]
+    launches = kda_op.kda.launches
+    o, o_ref = kda_op.kda(*ours), kda_op.kda_reference(*theirs)
+    o.square().sum().backward()
+    o_ref.square().sum().backward()
+    assert torch.equal(o, o_ref)
+    for a, b in zip(ours, theirs):
+        assert torch.equal(a.grad, b.grad)
+    assert kda_op.kda.launches == launches
+    assert metrics.counters("kda.").get("kda.kernel_calls", 0) == 0
+
+
+def _kernel_inputs(**change):
+    """Inputs the kernels take (on any device), with ``change`` applied:
+    q, k, v (1, 5, 2, 128) bf16, g and beta fp32."""
+    gen = torch.Generator().manual_seed(0)
+    shape = change.pop("shape", (1, 5, 2, 128))
+    t = {name: torch.randn(*shape, generator=gen).to(torch.bfloat16) for name in "qkv"}
+    t["g"] = -torch.rand(*shape, generator=gen)
+    t["beta"] = torch.rand(*shape[:3], generator=gen)
+    for name, fn in change.items():
+        t[name] = fn(t[name])
+    return [t[name] for name in ("q", "k", "v", "g", "beta")]
+
+
+@pytest.mark.parametrize("what,change", [
+    ("head width 64", dict(shape=(1, 5, 2, 64))),
+    ("fp16 q, k, v", {n: (lambda x: x.half()) for n in "qkv"}),
+    ("fp16 q alone", dict(q=lambda x: x.half())),
+    ("bf16 g", dict(g=lambda x: x.bfloat16())),
+    ("bf16 beta", dict(beta=lambda x: x.bfloat16())),
+    ("k of another length", dict(k=lambda x: x[:, :4])),
+    ("g of other heads", dict(g=lambda x: x[:, :, :1])),
+    ("beta with a channel axis", dict(beta=lambda x: x[..., None])),
+    ("three axes", {n: (lambda x: x[0]) for n in "qkvg"}),
+    ("no positions", dict(shape=(1, 0, 2, 128))),
+])
+def test_the_kernel_input_check_refuses_what_the_kernels_do_not_take(what, change):
+    with pytest.raises(ValueError):
+        kda_op.check_kernel_inputs(*_kernel_inputs(**change))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_the_kernel_input_check_takes_the_kernels_inputs(dtype):
+    q, k, v, g, beta = _kernel_inputs()
+    kda_op.check_kernel_inputs(q.to(dtype), k.to(dtype), v.to(dtype), g, beta)
+    # the short convolutions' layout (token stride 1) is read in place
+    conv = torch.randn(1, 256, 5).to(dtype).transpose(1, 2).unflatten(-1, (2, 128))
+    kda_op.check_kernel_inputs(conv, conv, conv, g, beta)
+    assert kda_op.chunks(1) == 1 and kda_op.chunks(48) == 1 and kda_op.chunks(97) == 3
+
+
 # ------------------------------------------------------------------ the model
 
 
@@ -402,6 +459,7 @@ def test_the_step_reads_no_counter(monkeypatch):
     assert reads == ["tolist"] * 8  # 4 expert layers x 2 model calls
     after = metrics.counters()
     assert after["kda.core_calls"] == 8  # 4 delta-rule layers x 2 model calls
+    assert after.get("kda.kernel_calls", 0) == 0  # the CPU path: the plain version
     tokens = sum(int(np.prod(batch[f"{r}_ids"].shape)) for r in "abh")
     for layer in (1, 2, 3, 4):
         assert after[f"moe.routed_slots.{layer}"] == 4 * tokens
@@ -464,5 +522,5 @@ def test_cli_trains_a_kimi_decoder_saves_and_reloads(decoder_cli, caplog):
     assert len(lines) == 2
     for r in lines:
         text = r.getMessage()
-        assert "KDA core 8.0 calls a step" in text and "experts held" in text
+        assert "KDA core 8.0 calls a step, kernel 0.0" in text and "experts held" in text
         assert "MLA kernel 0.0 calls a step" in text and "norm kernel 0.0 calls a step" in text
