@@ -145,8 +145,10 @@
 10. MLA phase (ops/mla_attention.py, ops/csrc/mla_attention.cu): the
    latent-attention kernels at the decoder cells' two shapes (512 rows
    of 48 positions, 256 of 96; 128 + 64 / 128 dimensions, bf16), with
-   Moonlight's 16 heads and rope tables and with Kimi-Linear's 32 heads
-   and the tables of no rotation (NoPE), held against the plain
+   Moonlight's 16 heads and rope tables, with Kimi-Linear's 32 heads
+   and the tables of no rotation (NoPE), and with Xing4.0's 32 heads, its
+   YaRN tables and its softmax scale (the scale a launch argument), held
+   against the plain
    version (context and the three gradients) and timed forward and
    forward + backward (CUDA events back to back, and behind a sleeping
    kernel for the card's time; each kernel's share by torch.profiler)
@@ -173,13 +175,20 @@
    branch and one bf16 copy; each expert layer's input, a bf16 branch and
    fp32 out; a delta-rule layer's input after an expert layer, an fp32
    branch and one bf16 copy; the latent attention's, an fp32 branch and
-   two bf16 copies; the final norm, an fp32 branch and fp32 out).
-   Alone: python3 -c 'import chip_smoke; chip_smoke.norm_phase()'.
+   two bf16 copies; the final norm, an fp32 branch and fp32 out); and the
+   Xing4.0 cell's three new sites (XING_NORM_SITES, no branch at any: the
+   stream mix h at 3584 with two bf16 copies, for each attention and each
+   dense MLP; h at 3584 with fp32 out, for each expert layer and the
+   final norm; q_a_layernorm's bf16 768, one bf16 copy; its 512 latent is
+   Moonlight's site). Alone:
+   python3 -c 'import chip_smoke; chip_smoke.norm_phase()'.
 12. One forward and backward of each decoder cell's encoder at its
    published widths in the cells' two shapes: Moonlight's launches the
    MLA kernels 30 times (10 forward calls) and the add + RMSNorm kernels
    96 times (32), Kimi-Linear's 6 (2) and 72 (24), with its delta-rule
-   core called 8 times; the entries' launches_by_path. Alone:
+   core called 8 times, and Xing4.0's (a dense and an expert layer, the
+   dense layer recomputed in the backward) 14 (4) and 62 (18), with 8
+   hyper-connection calls; the entries' launches_by_path. Alone:
    python3 -c 'import chip_smoke; chip_smoke.decoder_step_launches()'.
 13. Prints one JSON line describing each kernel (K1, K2 and K5 with their
    sharded launches and rows; K1 with its eval_gate, eval_gate_tp and
@@ -2988,7 +2997,8 @@ def ner_train_phase(corpus, cfg, fused_ner_ms: float) -> dict:
 
 MLA_SHAPES = ((512, 48), (256, 96))  # (rows, positions) of the decoder cells' two forwards
 MLA_NOPE, MLA_ROPE, MLA_V, MLA_LORA = 128, 64, 128, 512
-MLA_MODELS = (("moonlight", 16, "rope"), ("kimi_linear", 32, "nope"))  # (model, heads, tables)
+MLA_MODELS = (("moonlight", 16, "rope"), ("kimi_linear", 32, "nope"),  # (model, heads, tables)
+              ("xing4_0", 32, "yarn"))
 
 
 def mla_bound_ms(b: int, s: int, h: int):
@@ -3009,21 +3019,23 @@ def mla_bound_ms(b: int, s: int, h: int):
     return fwd, bwd
 
 
-def mla_phase() -> list:
-    """The MLA kernels at the decoder cells' shapes, heads and tables: held
-    against the plain version, timed beside their bound, the plain version
-    and SDPA."""
+def mla_phase(models=MLA_MODELS) -> list:
+    """The MLA kernels at the decoder cells' shapes, heads, tables and
+    scales: held against the plain version, timed beside their bound, the
+    plain version and SDPA."""
     import torch
     import torch.nn.functional as F
 
     sys.path.insert(0, str(ROOT))
     from rag_icd10_tpu_torch.models.deepseek_v3 import nope_tables, rope_tables
+    from rag_icd10_tpu_torch.models.xing4 import Xing4Arch
     from rag_icd10_tpu_torch.ops import mla_attention as mla
 
     torch.backends.cuda.matmul.allow_tf32 = False
     nope, rope, vd, lora = MLA_NOPE, MLA_ROPE, MLA_V, MLA_LORA
+    xing = Xing4Arch()  # the published widths, YaRN and its softmax scale
     rows = []
-    for (model, h, kind), (b, s) in ((m, shape) for m in MLA_MODELS for shape in MLA_SHAPES):
+    for (model, h, kind), (b, s) in ((m, shape) for m in models for shape in MLA_SHAPES):
         gen = torch.Generator(device=DEVICE).manual_seed(s)
 
         def normal(*shape):
@@ -3033,14 +3045,16 @@ def mla_phase() -> list:
         kv = normal(b, s, h * (nope + vd)).requires_grad_(True)
         kv_a = normal(b, s, lora + rope).requires_grad_(True)
         d_out = normal(b, s, h * vd)
+        scale = xing.softmax_scale if kind == "yarn" else None
         cos, sin = (rope_tables(s, rope, 50000.0, DEVICE) if kind == "rope"
-                    else nope_tables(s, rope, DEVICE))
+                    else rope_tables(s, rope, xing.rope_theta, DEVICE, xing.rope_scaling)
+                    if kind == "yarn" else nope_tables(s, rope, DEVICE))
         leaves = (q, kv, kv_a)
 
         def step(fn, backward=True):
             for t in leaves:
                 t.grad = None
-            out = fn(q, kv, kv_a[..., lora:], cos, sin, h)
+            out = fn(q, kv, kv_a[..., lora:], cos, sin, h, scale)
             if backward:
                 out.backward(d_out)
             return out
@@ -3069,12 +3083,13 @@ def mla_phase() -> list:
         def library():
             for t in (lq, lk, lv):
                 t.grad = None
-            F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
-                                           scale=(nope + rope) ** -0.5).backward(d4)
+            F.scaled_dot_product_attention(
+                lq, lk, lv, is_causal=True,
+                scale=(nope + rope) ** -0.5 if scale is None else scale).backward(d4)
 
         (fwd_bound, fwd_by), (bwd_bound, bwd_by) = mla_bound_ms(b, s, h)
         row = {
-            "model": model, "B": b, "S": s, "heads": h, "tables": kind,
+            "model": model, "B": b, "S": s, "heads": h, "tables": kind, "scale": scale,
             "dims": [nope, rope, vd], "max_rel_err": errs,
             "fwd_ms": time_ms(lambda: step(mla.mla_attention, backward=False)),
             "ms": time_ms(lambda: step(mla.mla_attention)),
@@ -3114,6 +3129,13 @@ KIMI_NORM_SITES = {  # the Kimi cell's at its hidden width (a block of 288 threa
     "kimi_mla_after_experts": (2304, "float32", "float32", ("bfloat16", "bfloat16"), False),  # 2
     "kimi_final_norm": (2304, "float32", "float32", ("float32",), False),  # 2
 }
+XING_NORM_SITES = {  # the Xing4.0 cell's, no branch at any (the stream update is the mixing's):
+    # name by what reads it, with its forward calls a step
+    "xing_attention_and_dense_mlp_input": (3584, "float32", None, ("bfloat16", "bfloat16"),
+                                           False),  # h = H_pre X: 12 + 4
+    "xing_expert_input_and_final_norm": (3584, "float32", None, ("float32",), False),  # 8 + 2
+    "xing_q_a": (768, "bfloat16", None, ("bfloat16",), False),  # q_a_layernorm: 12
+}  # and the latent at 512, NORM_SITES' "latent": 12
 
 
 def norm_tolerance(name: str, dtype) -> float:
@@ -3146,10 +3168,10 @@ def norm_bytes(width: int, x_dt, branch_dt, out) -> tuple:
     return fwd, bwd
 
 
-def norm_phase() -> list:
-    """The add + RMSNorm kernels at the decoder cells' sites and row count:
-    held against the plain chain, timed beside their bound, the plain
-    chain and F.rms_norm."""
+def norm_phase(sites=None) -> list:
+    """The add + RMSNorm kernels at the decoder cells' sites (``sites``:
+    every one of them) and row count: held against the plain chain, timed
+    beside their bound, the plain chain and F.rms_norm."""
     import torch
     import torch.nn.functional as F
 
@@ -3157,7 +3179,8 @@ def norm_phase() -> list:
     from rag_icd10_tpu_torch.ops import rms_norm
 
     rows = []
-    for site, (width, x_dt, b_dt, out_names, in_place) in (NORM_SITES | KIMI_NORM_SITES).items():
+    sites = NORM_SITES | KIMI_NORM_SITES | XING_NORM_SITES if sites is None else sites
+    for site, (width, x_dt, b_dt, out_names, in_place) in sites.items():
         gen = torch.Generator(device=DEVICE).manual_seed(width)
         out = tuple(getattr(torch, dt) for dt in out_names)
 
@@ -3358,9 +3381,9 @@ def kda_phase() -> list:
 def step_launches(model, vocab: int, want: dict) -> dict:
     """One forward of 512 rows of 48 positions and one of 256 of 96 through
     ``model``, one backward through both: the MLA, add + RMSNorm and
-    delta-rule kernels' launches and forward calls, and the delta-rule
-    core's forward calls, each counted from zero just before the step, held
-    to ``want``."""
+    delta-rule kernels' launches and forward calls, the delta-rule core's
+    and the hyper-connections' forward calls, each counted from zero just
+    before the step, held to ``want``."""
     import torch
 
     from rag_icd10_tpu_torch.ops import kda as kda_op
@@ -3388,6 +3411,7 @@ def step_launches(model, vocab: int, want: dict) -> dict:
                                  ("norm", rms_norm.add_rms_norm.launches))}
     found["kda"] = {"launches": kda_op.kda.launches, "kernel_calls": rise("kda.kernel_calls"),
                     "core_calls": rise("kda.core_calls")}
+    found["mhc"] = {"calls": rise("mhc.calls")}
     return found
 
 
@@ -3400,12 +3424,21 @@ def decoder_step_launches() -> dict:
     launches. Kimi-Linear-48B-A3B's, 5 layers (delta rule x3, latent
     attention without rotation, delta rule): MLA 2 and 6; add + RMSNorm 24
     (11 sites at 2304 and 1 latent a call) and 72; the delta-rule core 8
-    calls, each through its kernels (M3: 8 forward calls, 16 launches)."""
+    calls, each through its kernels (M3: 8 forward calls, 16 launches).
+    Xing4.0-29B-A4B's, a dense and an expert layer (4 streams, 20 Sinkhorn
+    steps, q-LoRA and YaRN), the first recomputed in the backward and the
+    last keeping its activations (models/xing4.py KEPT_LAYERS 1): MLA 4
+    forward calls, and 14 launches (4 forward, 2 recomputed, 8 backward);
+    add + RMSNorm 18 (2 sublayer norms, q_a and kv_a a layer, and the final
+    norm, a call), 62 launches (18 forward, 8 recomputed, 36 backward);
+    the hyper-connections 8 forward calls. The recomputation counts no
+    forward call."""
     import torch
 
     sys.path.insert(0, str(ROOT))
     from rag_icd10_tpu_torch.models import deepseek_v3 as dv
     from rag_icd10_tpu_torch.models import kimi_linear as kl
+    from rag_icd10_tpu_torch.models import xing4 as xg
 
     moonlight = dv.DeepseekV3Arch.from_config(dict(
         model_type="deepseek_v3", vocab_size=21128, hidden_size=2048, intermediate_size=11264,
@@ -3427,16 +3460,33 @@ def decoder_step_launches() -> dict:
         linear_attn_config=dict(kda_layers=[1, 2, 3, 5], full_attn_layers=[4], head_dim=128,
                                 num_heads=32, short_conv_kernel_size=4)),
         compute_dtype=torch.bfloat16)
+    xing = xg.Xing4Arch.from_config(dict(
+        model_type="xing4_0", vocab_size=21128, hidden_size=3584, intermediate_size=9216,
+        moe_intermediate_size=1024, num_hidden_layers=2, num_attention_heads=32,
+        kv_lora_rank=512, q_lora_rank=768, qk_nope_head_dim=128, qk_rope_head_dim=64,
+        v_head_dim=128, n_routed_experts=64, num_experts_per_tok=4, n_shared_experts=1,
+        routed_scaling_factor=2.0, norm_topk_prob=True, first_k_dense_replace=1,
+        moe_layer_freq=1, rms_norm_eps=1e-6, rope_theta=10000, max_position_embeddings=262144,
+        scoring_func="sigmoid", topk_method="noaux_tc", n_group=1, topk_group=1,
+        rope_scaling=dict(type="yarn", factor=64, original_max_position_embeddings=4096,
+                          beta_fast=32, beta_slow=1, mscale=1, mscale_all_dim=1),
+        hc_mult=4, hc_sinkhorn_iters=20, hc_eps=1e-6, mhc_h_res_clamp_min=-30,
+        mhc_h_res_clamp_max=30, experts_held=list(range(8))), compute_dtype=torch.bfloat16)
+    no_kda = {"launches": 0, "kernel_calls": 0, "core_calls": 0}
     found = {}
     for name, make, arch, want in (
             ("moonlight", dv.SentenceDeepseekV3, moonlight,
              {"mla": {"launches": 30, "kernel_calls": 10},
               "norm": {"launches": 96, "kernel_calls": 32},
-              "kda": {"launches": 0, "kernel_calls": 0, "core_calls": 0}}),
+              "kda": no_kda, "mhc": {"calls": 0}}),
             ("kimi_linear", kl.SentenceKimiLinear, kimi,
              {"mla": {"launches": 6, "kernel_calls": 2},
               "norm": {"launches": 72, "kernel_calls": 24},
-              "kda": {"launches": 16, "kernel_calls": 8, "core_calls": 8}})):
+              "kda": {"launches": 16, "kernel_calls": 8, "core_calls": 8}, "mhc": {"calls": 0}}),
+            ("xing4_0", xg.SentenceXing4, xing,
+             {"mla": {"launches": 14, "kernel_calls": 4},
+              "norm": {"launches": 62, "kernel_calls": 18},
+              "kda": no_kda, "mhc": {"calls": 8}})):
         with torch.device(DEVICE):
             model = make(arch)
         found[name] = step_launches(model, arch.vocab_size, want)

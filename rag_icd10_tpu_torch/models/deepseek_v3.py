@@ -5,13 +5,22 @@ then masked mean pooling and L2 normalization. There is no LM head.
 The block follows the published modelling code (``modeling_deepseek.py``
 of the DeepSeek-V3 checkpoints):
 
-- Multi-head latent attention without q-LoRA: ``q_proj`` to heads of
-  ``qk_nope_head_dim + qk_rope_head_dim``; ``kv_a_proj_with_mqa`` to the
+- Multi-head latent attention: ``q_proj`` to heads of
+  ``qk_nope_head_dim + qk_rope_head_dim`` (with q-LoRA, where
+  ``q_lora_rank`` is set: ``q_a_proj`` to the rank, ``q_a_layernorm``,
+  ``q_b_proj`` to the heads); ``kv_a_proj_with_mqa`` to the
   ``kv_lora_rank`` latent and one ``k_pe`` shared by every head;
   ``kv_a_layernorm`` (RMSNorm) on the latent; ``kv_b_proj`` to each head's
   k_nope and v; ``o_proj``. RoPE on the rope dimensions, pairs interleaved
   as the modelling code de-interleaves them; softmax scale
-  ``(qk_nope + qk_rope) ** -0.5`` (no ``rope_scaling``). The mask is
+  ``(qk_nope + qk_rope) ** -0.5``. With YaRN ``rope_scaling`` (the
+  modelling code's ``DeepseekV3YarnRotaryEmbedding``): each frequency is
+  blended between theta^(-2i/d) and it over ``factor`` by a linear ramp
+  between the correction dimensions of ``beta_fast`` and ``beta_slow`` at
+  ``original_max_position_embeddings``, the tables are scaled by
+  mscale(factor, mscale) / mscale(factor, mscale_all_dim), and the softmax
+  scale by mscale(factor, mscale_all_dim)^2, mscale(s, m) = 0.1 m ln s + 1
+  (``yarn_get_mscale``). The mask is
   causal; padding is on the right, so no valid position sees a pad. The
   core between the projections (RoPE, logits, softmax, P.V) is
   ``ops/mla_attention.py``: a hand-written kernel on the card, its plain
@@ -65,11 +74,14 @@ checkpoint's ``config.json`` beside it (``experts_held`` added for a share).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import dataclasses
 import json
 import math
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import ClassVar, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -92,9 +104,71 @@ _CONFIG_KEYS = (
     "moe_layer_freq", "rms_norm_eps", "rope_theta", "max_position_embeddings",
 )
 # the only value of each of these keys that this module implements
-_IMPLEMENTED = {"model_type": MODEL_TYPE, "q_lora_rank": None, "hidden_act": "silu",
-                "scoring_func": "sigmoid", "topk_method": "noaux_tc", "n_group": 1,
-                "topk_group": 1, "attention_bias": False, "rope_scaling": None}
+_IMPLEMENTED = {"model_type": MODEL_TYPE, "hidden_act": "silu", "scoring_func": "sigmoid",
+                "topk_method": "noaux_tc", "n_group": 1, "topk_group": 1,
+                "attention_bias": False}
+
+
+def yarn_mscale(scale: float, mscale: float) -> float:
+    """The modelling code's ``yarn_get_mscale``: 0.1 mscale ln(scale) + 1 (1
+    at scale <= 1)."""
+    return 1.0 if scale <= 1 else 0.1 * mscale * math.log(scale) + 1.0
+
+
+@dataclass(frozen=True)
+class YaRN:
+    """``rope_scaling`` of ``type`` ``yarn`` (every key of it: the published
+    file's, as the modelling code reads them)."""
+
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+    @classmethod
+    def from_config(cls, rope_scaling: Optional[Dict]) -> Optional["YaRN"]:
+        """None for no scaling; ``ValueError`` for another type or an
+        unknown key."""
+        if rope_scaling is None:
+            return None
+        kw = dict(rope_scaling)
+        kind = kw.pop("type", kw.pop("rope_type", None))
+        fields = {f for f in cls.__dataclass_fields__}
+        if kind != "yarn" or set(kw) - fields:
+            raise ValueError(f"rope_scaling {rope_scaling!r} is not implemented (only type "
+                             f"yarn, with keys {sorted(fields)})")
+        return cls(**kw)
+
+    def to_config(self) -> Dict:
+        return {"type": "yarn", **dataclasses.asdict(self)}
+
+    def inv_freq(self, dim: int, theta: float, device) -> torch.Tensor:
+        """The blended frequencies, (dim / 2,) fp32."""
+        def correction_dim(rotations):
+            return (dim * math.log(self.original_max_position_embeddings
+                                   / (rotations * 2 * math.pi))) / (2 * math.log(theta))
+
+        low = max(math.floor(correction_dim(self.beta_fast)), 0)
+        high = min(math.ceil(correction_dim(self.beta_slow)), dim - 1)
+        extra = 1.0 / theta ** (torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim)
+        inter = extra / self.factor
+        ramp = ((torch.arange(dim // 2, dtype=torch.float32, device=device) - low)
+                / (high - low if high > low else 0.001)).clamp(0, 1)
+        keep = 1.0 - ramp  # 1 where the frequency is kept (extrapolated), 0 where divided
+        return inter * (1 - keep) + extra * keep
+
+    @property
+    def table_scale(self) -> float:
+        return yarn_mscale(self.factor, self.mscale) / yarn_mscale(self.factor,
+                                                                   self.mscale_all_dim)
+
+    @property
+    def softmax_factor(self) -> float:
+        """What the softmax scale is multiplied by."""
+        m = yarn_mscale(self.factor, self.mscale_all_dim) if self.mscale_all_dim else 1.0
+        return m * m
 
 
 @dataclass(frozen=True)
@@ -122,12 +196,26 @@ class DeepseekV3Arch:
     rms_norm_eps: float = 1e-5
     rope_theta: float = 50000.0
     max_position_embeddings: int = 8192
+    q_lora_rank: Optional[int] = None  # None: q_proj, no q-LoRA
+    rope_scaling: Optional[YaRN] = None
     experts_held: Tuple[int, ...] = ()  # () holds every expert
     compute_dtype: torch.dtype = torch.bfloat16  # the weights are fp32 masters
+
+    # the config.json keys read, and the only value of each of these that is implemented
+    config_keys: ClassVar[Tuple[str, ...]] = _CONFIG_KEYS
+    implemented: ClassVar[Dict] = _IMPLEMENTED
 
     @property
     def held(self) -> Tuple[int, ...]:
         return self.experts_held or tuple(range(self.n_routed_experts))
+
+    @property
+    def softmax_scale(self) -> Optional[float]:
+        """The latent attention's softmax scale where it is not
+        qk_head_dim^-1/2 (YaRN's mscale^2 on it), else None."""
+        if self.rope_scaling is None or self.rope_scaling.softmax_factor == 1.0:
+            return None
+        return self.qk_head_dim ** -0.5 * self.rope_scaling.softmax_factor
 
     @property
     def qk_head_dim(self) -> int:
@@ -141,16 +229,20 @@ class DeepseekV3Arch:
     def from_config(cls, config: Dict, **overrides) -> "DeepseekV3Arch":
         """The arch of an HF-style ``config.json``; what this module does not
         implement raises ``ValueError``."""
-        for key, want in _IMPLEMENTED.items():
+        for key, want in cls.implemented.items():
             got = config.get(key, None if key == "model_type" else want)
             if got != want:
-                raise ValueError(f"{MODEL_TYPE} config: {key}={got!r} is not implemented "
-                                 f"(only {want!r})")
-        kw = {k: config[k] for k in _CONFIG_KEYS if k in config}
+                raise ValueError(f"{cls.implemented['model_type']} config: {key}={got!r} is not "
+                                 f"implemented (only {want!r})")
+        kw = {k: config[k] for k in cls.config_keys if k in config}
         held = config.get("experts_held")
         if held is not None:
             kw["experts_held"] = tuple(int(e) for e in held)
+        kw["q_lora_rank"] = config.get("q_lora_rank")
+        kw["rope_scaling"] = YaRN.from_config(config.get("rope_scaling"))
         arch = cls(**kw, **overrides)
+        if arch.q_lora_rank is not None and arch.q_lora_rank < 1:
+            raise ValueError(f"q_lora_rank {arch.q_lora_rank}: a rank of 1 or more, or null")
         if any(not 0 <= e < arch.n_routed_experts for e in arch.held) \
                 or len(set(arch.held)) != len(arch.held):
             raise ValueError(f"experts_held {arch.held} outside the router's "
@@ -159,8 +251,10 @@ class DeepseekV3Arch:
 
     def to_config(self) -> Dict:
         """The ``config.json`` that ``from_config`` reads back."""
-        out = dict(_IMPLEMENTED)
-        out.update({k: getattr(self, k) for k in _CONFIG_KEYS})
+        out = dict(self.implemented)
+        out.update({k: getattr(self, k) for k in self.config_keys})
+        out["q_lora_rank"] = self.q_lora_rank
+        out["rope_scaling"] = None if self.rope_scaling is None else self.rope_scaling.to_config()
         out["experts_held"] = list(self.held)
         return out
 
@@ -196,13 +290,20 @@ class RMSNorm(nn.Module):
         return add_rms_norm(x, branch, self.weight, self.eps, out)
 
 
-def rope_tables(seq: int, dim: int, theta: float, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(cos, sin), each (seq, dim) in fp32: frequencies theta^(-2i/dim),
-    repeated over both halves as the modelling code lays them out."""
-    inv = 1.0 / theta ** (torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim)
+def rope_tables(seq: int, dim: int, theta: float, device,
+                yarn: Optional[YaRN] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin), each (seq, dim) in fp32: frequencies theta^(-2i/dim)
+    (``yarn``'s blend of them, where given, and its table scale), repeated
+    over both halves as the modelling code lays them out."""
+    if yarn is None:
+        inv = 1.0 / theta ** (torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim)
+    else:
+        inv = yarn.inv_freq(dim, theta, device)
     freqs = torch.outer(torch.arange(seq, dtype=torch.float32, device=device), inv)
     emb = torch.cat([freqs, freqs], dim=-1)
-    return emb.cos(), emb.sin()
+    if yarn is None or yarn.table_scale == 1.0:
+        return emb.cos(), emb.sin()
+    return emb.cos() * yarn.table_scale, emb.sin() * yarn.table_scale
 
 
 def nope_tables(seq: int, dim: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -215,31 +316,42 @@ def nope_tables(seq: int, dim: int, device) -> Tuple[torch.Tensor, torch.Tensor]
 
 
 class LatentAttention(nn.Module):
-    """MLA without q-LoRA (the published module's parameter names)."""
+    """MLA, with q-LoRA where ``q_lora_rank`` is set (the published module's
+    parameter names)."""
 
     def __init__(self, arch: DeepseekV3Arch):
         super().__init__()
         a, h = arch, arch.hidden_size
         self.arch = arch
-        self.q_proj = Linear(h, a.num_attention_heads * a.qk_head_dim, a)
+        if a.q_lora_rank is None:
+            self.q_proj = Linear(h, a.num_attention_heads * a.qk_head_dim, a)
+        else:
+            self.q_a_proj = Linear(h, a.q_lora_rank, a)
+            self.q_a_layernorm = RMSNorm(a.q_lora_rank, a.rms_norm_eps)
+            self.q_b_proj = Linear(a.q_lora_rank, a.num_attention_heads * a.qk_head_dim, a)
         self.kv_a_proj_with_mqa = Linear(h, a.kv_lora_rank + a.qk_rope_head_dim, a)
         self.kv_a_layernorm = RMSNorm(a.kv_lora_rank, a.rms_norm_eps)
         self.kv_b_proj = Linear(a.kv_lora_rank,
                                 a.num_attention_heads * (a.qk_nope_head_dim + a.v_head_dim), a)
         self.o_proj = Linear(a.num_attention_heads * a.v_head_dim, h, a)
-        self.inputs = (a.compute_dtype,) * 2  # q_proj's and kv_a_proj_with_mqa's
+        self.inputs = (a.compute_dtype,) * 2  # q_proj's (or q_a_proj's) and kv_a_proj_with_mqa's
 
     def forward(self, x_q: torch.Tensor, x_kv: torch.Tensor, cos: torch.Tensor,
                 sin: torch.Tensor) -> torch.Tensor:
-        """``x_q``, ``x_kv``: ``q_proj``'s and ``kv_a_proj_with_mqa``'s own
-        copies of the input (``inputs``)."""
+        """``x_q``, ``x_kv``: ``q_proj``'s (or ``q_a_proj``'s) and
+        ``kv_a_proj_with_mqa``'s own copies of the input (``inputs``)."""
         a = self.arch
-        q = self.q_proj(x_q)
+        if a.q_lora_rank is None:
+            q = self.q_proj(x_q)
+        else:
+            _, (q,) = self.q_a_layernorm(self.q_a_proj(x_q), out=(a.compute_dtype,))
+            q = self.q_b_proj(q)
         latent, k_pe = self.kv_a_proj_with_mqa(x_kv).split([a.kv_lora_rank, a.qk_rope_head_dim],
                                                             dim=-1)
         _, (latent,) = self.kv_a_layernorm(latent, out=(a.compute_dtype,))
         kv = self.kv_b_proj(latent)
-        return self.o_proj(mla_attention(q, kv, k_pe, cos, sin, a.num_attention_heads))
+        return self.o_proj(mla_attention(q, kv, k_pe, cos, sin, a.num_attention_heads,
+                                         a.softmax_scale))
 
 
 class SwiGLU(nn.Module):
@@ -285,6 +397,48 @@ class Router(nn.Module):
         return idx, w * a.routed_scaling_factor
 
 
+_host_reads: contextvars.ContextVar = contextvars.ContextVar("host_reads", default=None)
+
+
+class HostReads:
+    """The host reads of one checkpointed forward (``host_list``): kept
+    while it runs inside ``record()``, given back in their order inside
+    ``replay()``, its recomputation in the backward, which so reads
+    nothing from the device."""
+
+    def __init__(self):
+        self.values = []
+
+    @contextlib.contextmanager
+    def record(self):
+        token = _host_reads.set((self.values, None))
+        try:
+            yield
+        finally:
+            _host_reads.reset(token)
+
+    @contextlib.contextmanager
+    def replay(self):
+        token = _host_reads.set((self.values, iter(self.values)))
+        try:
+            yield
+        finally:
+            _host_reads.reset(token)
+
+
+def host_list(t: torch.Tensor) -> list:
+    """``t.tolist()``, a read that waits for the device; inside
+    ``HostReads.replay()`` the value the recorded forward read instead."""
+    reads = _host_reads.get()
+    if reads is None:
+        return t.tolist()
+    values, replay = reads
+    if replay is not None:
+        return next(replay)
+    values.append(t.tolist())
+    return values[-1]
+
+
 class ExpertShare(nn.Module):
     """The mixture-of-experts layer as one expert-parallel rank holds it:
     the router over every expert, the experts ``arch.held`` (named by their
@@ -316,7 +470,7 @@ class ExpertShare(nn.Module):
             counts = torch.bincount(local, minlength=n_held + 1)[:n_held]
             metrics.count(f"moe.held_slots.{self.layer}", counts)
             metrics.count(f"moe.routed_slots.{self.layer}", idx.numel())
-            sizes = counts.tolist()  # the one host read of a layer's forward
+            sizes = host_list(counts)  # the one host read of a layer's forward
             mine = order[:sum(sizes)]
             token, weight = mine // k, w.reshape(-1)[mine]
         with metrics.span("moe.experts"):
@@ -372,7 +526,7 @@ class DeepseekV3Model(nn.Module):
     def tables(self, seq: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
         """The latent attention's (cos, sin), built once a forward."""
         a = self.arch
-        return rope_tables(seq, a.qk_rope_head_dim, a.rope_theta, device)
+        return rope_tables(seq, a.qk_rope_head_dim, a.rope_theta, device, a.rope_scaling)
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         cos, sin = self.tables(input_ids.shape[1], input_ids.device)

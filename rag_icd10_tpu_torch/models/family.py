@@ -17,6 +17,7 @@ import torch
 from ..utils.metrics import metrics
 from . import deepseek_v3 as dv
 from . import kimi_linear as kl
+from . import xing4 as xg
 from .bert import BertArch, SentenceBert, init_params
 from .convert_hf import jax_leaf_order, load_params, params_from_jax, params_to_jax, save_params
 
@@ -89,6 +90,10 @@ FAMILIES: Dict[str, Family] = {f.model_type: f for f in (
              EXPERTS_TEXT + "; KDA core %.1f calls a step, kernel %.1f" + KERNELS_TEXT,
              lambda: (metrics.counters("moe."), kl.kda_core_calls(), kl.kda_kernel_calls(),
                       dv.mla_kernel_calls(), dv.norm_kernel_calls())),
+    _decoder(xg, xg.Xing4Arch, xg.SentenceXing4,
+             EXPERTS_TEXT + "; mHC %.1f calls a step" + KERNELS_TEXT,
+             lambda: (metrics.counters("moe."), xg.mhc_calls(), dv.mla_kernel_calls(),
+                      dv.norm_kernel_calls())),
 )}
 
 
@@ -105,4 +110,5 @@ def beside(path: Optional[str]) -> Tuple[Family, Dict]:
 
 
 def of_arch(arch) -> Family:
-    return next(f for f in FAMILIES.values() if isinstance(arch, f.arch_type))
+    """The family whose arch type is ``arch``'s own (not a base of it)."""
+    return next(f for f in FAMILIES.values() if type(arch) is f.arch_type)

@@ -10,7 +10,8 @@
 // site), and autograd replays about ten elementwise and reduce kernels for it
 // in the backward.
 //
-// Computes, for rows of width W (2048 and 2304 hidden, 512 latent):
+// Computes, for rows of width W (2048, 2304 and 3584 hidden, 512 and 768
+// latent):
 //   x_new = x + branch          (fp32; only where there is a branch)
 //   rstd  = rsqrt(mean(x_new^2) + eps), one fp32 value a row
 //   y     = weight * (x_new * rstd), written once as fp32 and once as bf16
@@ -32,9 +33,10 @@
 // Design:
 // - A row lives in registers, 8 consecutive elements a thread (one 16-byte
 //   access of bf16, two of fp32), W / 8 threads a row: a block of 256
-//   threads holds one row of 2048 or four rows of 512, and a row of 2304
-//   takes a block of its own 288 threads (9 warps). Each input is read once a
-//   pass and each output written once.
+//   threads holds one row of 2048 or four rows of 512, one of 192 threads two
+//   rows of 768, and a row of 2304 or 3584 takes a block of its own 288 or 448
+//   threads (9 or 14 warps). Each input is read once a pass and each output
+//   written once.
 // - The row's sums in fp32: warp shuffles, then the row's warps in order
 //   through shared memory.
 // - Forward: one block a group of rows (T / rows-a-block blocks).
@@ -83,10 +85,11 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int THREADS = 256;
 
-// A block's threads at width W: 256, or one row's W / 8 where that is more.
+// A block's threads at width W: the whole rows of W / 8 threads that 256
+// holds, or one row's W / 8 where that is more.
 template <int W>
 struct Block {
-  static constexpr int threads = W / 8 > THREADS ? W / 8 : THREADS;
+  static constexpr int threads = W / 8 > THREADS ? W / 8 : THREADS / (W / 8) * (W / 8);
   static constexpr int rows = threads / (W / 8);
 };
 
@@ -287,6 +290,12 @@ extern "C" int rms_norm_wave(int width, int x_bf16, int branch_bf16) {
   if (width == 2304)
     return x_bf16 ? wave<2304, bf16, bf16>()
                   : branch_bf16 ? wave<2304, float, bf16>() : wave<2304, float, float>();
+  if (width == 3584)
+    return x_bf16 ? wave<3584, bf16, bf16>()
+                  : branch_bf16 ? wave<3584, float, bf16>() : wave<3584, float, float>();
+  if (width == 768)
+    return x_bf16 ? wave<768, bf16, bf16>()
+                  : branch_bf16 ? wave<768, float, bf16>() : wave<768, float, float>();
   return -static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -321,6 +330,14 @@ extern "C" int rms_norm_launch(int kind, int width, int x_bf16, int branch_bf16,
     err = x_bf16 ? run<2304, bf16, bf16>(kind, a, parts, fw, st)
                  : branch_bf16 ? run<2304, float, bf16>(kind, a, parts, fw, st)
                                : run<2304, float, float>(kind, a, parts, fw, st);
+  else if (width == 3584)
+    err = x_bf16 ? run<3584, bf16, bf16>(kind, a, parts, fw, st)
+                 : branch_bf16 ? run<3584, float, bf16>(kind, a, parts, fw, st)
+                               : run<3584, float, float>(kind, a, parts, fw, st);
+  else if (width == 768)
+    err = x_bf16 ? run<768, bf16, bf16>(kind, a, parts, fw, st)
+                 : branch_bf16 ? run<768, float, bf16>(kind, a, parts, fw, st)
+                               : run<768, float, float>(kind, a, parts, fw, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

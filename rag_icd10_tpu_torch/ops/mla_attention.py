@@ -34,7 +34,7 @@ import ctypes
 import functools
 import math
 import threading
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -70,10 +70,12 @@ def _dims(q: torch.Tensor, kv: torch.Tensor, k_pe: torch.Tensor,
 
 
 def mla_attention_reference(q: torch.Tensor, kv: torch.Tensor, k_pe: torch.Tensor,
-                            cos: torch.Tensor, sin: torch.Tensor, heads: int) -> torch.Tensor:
+                            cos: torch.Tensor, sin: torch.Tensor, heads: int,
+                            scale: Optional[float] = None) -> torch.Tensor:
     """The plain version: q (B, S, heads x (nope + rope)), kv (B, S, heads x
     (nope + v)) and k_pe (B, S, rope), all in the compute type; cos and sin
-    (S, rope) fp32 (``rope_tables``). Returns the context (B, S, heads x v)."""
+    (S, rope) fp32 (``rope_tables``); the softmax scale ``scale``, where it
+    is not (nope + rope)^-1/2. Returns the context (B, S, heads x v)."""
     b, s, _ = q.shape
     nh = heads
     nope, rope, vd = _dims(q, kv, k_pe, heads)
@@ -88,20 +90,24 @@ def mla_attention_reference(q: torch.Tensor, kv: torch.Tensor, k_pe: torch.Tenso
     q = torch.cat([q_nope, q_pe], dim=-1)
     k = torch.cat([k_nope, k_pe.expand(b, nh, s, rope)], dim=-1)
     # bf16 x bf16 products are exact in fp32: the logits carry fp32 accumulation
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(nope + rope)
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    scores = scores / math.sqrt(nope + rope) if scale is None else scores * scale
     probs = torch.softmax(scores + causal, dim=-1).to(dt)
     ctx = torch.matmul(probs, v)  # (B, heads, S, v)
     return ctx.transpose(1, 2).reshape(b, s, nh * vd)
 
 
 def mla_attention(q: torch.Tensor, kv: torch.Tensor, k_pe: torch.Tensor,
-                  cos: torch.Tensor, sin: torch.Tensor, heads: int) -> torch.Tensor:
+                  cos: torch.Tensor, sin: torch.Tensor, heads: int,
+                  scale: Optional[float] = None) -> torch.Tensor:
     """The context (B, S, heads x v) of ``mla_attention_reference``'s
     inputs: its plain version on a CPU tensor, the kernels on a CUDA one
-    (``ValueError`` for what they do not take)."""
+    (``ValueError`` for what they do not take). The kernels take the scale
+    as a launch argument."""
     if q.device.type == "cpu":
-        return mla_attention_reference(q, kv, k_pe, cos, sin, heads)
-    return _MLAAttention.apply(q, kv, k_pe, cos, sin, heads)
+        return mla_attention_reference(q, kv, k_pe, cos, sin, heads, scale)
+    return _MLAAttention.apply(q, kv, k_pe, cos, sin, heads,
+                               (NOPE + ROPE) ** -0.5 if scale is None else scale)
 
 
 mla_attention.launches = 0
@@ -157,7 +163,7 @@ def _kernel():
     return fn
 
 
-def _launch(kind: str, q, kv, k_pe, cos, sin, heads, d_out=None, out=None, lse=None,
+def _launch(kind: str, q, kv, k_pe, cos, sin, heads, scale, d_out=None, out=None, lse=None,
             delta=None, dq=None, dkv=None, dkpe=None) -> None:
     b, s, _ = q.shape
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
@@ -165,15 +171,15 @@ def _launch(kind: str, q, kv, k_pe, cos, sin, heads, d_out=None, out=None, lse=N
         err = _kernel()(
             _KINDS[kind], int(q.dtype == torch.float32), key_block(s),
             *(ptr(t) for t in (q, kv, k_pe, cos, sin, d_out, out, lse, delta, dq, dkv, dkpe)),
-            b, s, heads, k_pe.stride(0), k_pe.stride(1), cos.stride(0),
-            (NOPE + ROPE) ** -0.5, torch.cuda.current_stream().cuda_stream)
+            b, s, heads, k_pe.stride(0), k_pe.stride(1), cos.stride(0), scale,
+            torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"mla_attention kernel ({kind}) launch failed: CUDA error {err}")
 
 
 class _MLAAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, kv, k_pe, cos, sin, heads):
+    def forward(ctx, q, kv, k_pe, cos, sin, heads, scale):
         vd = _check_kernel_inputs(q, kv, k_pe, cos, sin, heads)[2]
         q, kv = q.contiguous(), kv.contiguous()
         cos, sin = cos.contiguous(), sin.contiguous()
@@ -182,12 +188,12 @@ class _MLAAttention(torch.autograd.Function):
         b, s, _ = q.shape
         out = torch.empty((b, s, heads * vd), dtype=q.dtype, device=q.device)
         lse = torch.empty((b * heads, s), dtype=torch.float32, device=q.device)
-        _launch("fwd", q, kv, k_pe, cos, sin, heads, out=out, lse=lse)
+        _launch("fwd", q, kv, k_pe, cos, sin, heads, scale, out=out, lse=lse)
         with _launch_lock:
             mla_attention.launches += 1
         metrics.count("mla.kernel_calls", 1)
         ctx.save_for_backward(q, kv, k_pe, cos, sin, lse)
-        ctx.heads = heads
+        ctx.heads, ctx.scale = heads, scale
         return out
 
     @staticmethod
@@ -200,9 +206,9 @@ class _MLAAttention(torch.autograd.Function):
         dq, dkv = torch.empty_like(q), torch.empty_like(kv)
         dkpe = torch.empty((b, s, heads, ROPE), dtype=torch.float32, device=q.device)
         delta = torch.empty_like(lse)
-        args = (q, kv, k_pe, cos, sin, heads)
+        args = (q, kv, k_pe, cos, sin, heads, ctx.scale)
         _launch("dq", *args, d_out=d_out, lse=lse, delta=delta, dq=dq)
         _launch("dkv", *args, d_out=d_out, lse=lse, delta=delta, dkv=dkv, dkpe=dkpe)
         with _launch_lock:
             mla_attention.launches += 2
-        return dq, dkv, dkpe.sum(2).to(k_pe.dtype), None, None, None
+        return dq, dkv, dkpe.sum(2).to(k_pe.dtype), None, None, None, None

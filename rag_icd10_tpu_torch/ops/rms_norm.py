@@ -20,8 +20,8 @@ fp32 ``rstd`` a row for the backward. A bf16 consumer's gradient thus
 reaches the backward kernel on its own and the sum is taken there in fp32,
 as autograd sums the gradients of the plain chain's casts; one bf16 ``y``
 shared by two consumers would add their gradients in bf16. They take
-widths 2048, 2304 and 512 (Moonlight's and Kimi-Linear's hidden sizes, and
-the kv rank of both), fp32 ``x`` with a bf16 or fp32 branch or none, bf16
+widths 2048, 2304 and 3584 (Moonlight's, Kimi-Linear's and Xing4.0's hidden
+sizes), 512 (the kv rank of all three) and 768 (Xing4.0's q rank), fp32 ``x`` with a bf16 or fp32 branch or none, bf16
 ``x`` with none, and an fp32 output and up to two bf16 ones. The source's note says what bounds them (the bytes)
 and what their design does about it. Built by ``ops/cuda_build.py`` at the
 first call, never at import.
@@ -39,7 +39,7 @@ from . import cuda_build
 
 _launch_lock = threading.Lock()
 
-WIDTHS = (2048, 2304, 512)  # the widths the kernels are built for
+WIDTHS = (2048, 2304, 3584, 512, 768)  # the widths the kernels are built for
 THREADS = 256  # a block's threads, each holding 8 elements of a row
 
 

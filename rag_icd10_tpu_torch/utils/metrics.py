@@ -10,6 +10,9 @@ kept in a bounded ring per name (``RING``: enough for a training
 window's per-layer spans); /stats surfaces counts + p50/p95/mean per name.
 Counters (``count``) add numbers, or tensors where they live (on the
 device, with no host read), and are read on demand (``counters``).
+Inside ``quiet()`` a thread records no span and adds to no counter: the
+backward's recomputation of a checkpointed forward runs there, so that
+spans and counters hold forward work only.
 torch.profiler traces can be started/stopped at runtime for deep dives
 (Chrome trace JSON, viewable in Perfetto): while one runs, each span is
 also a ``record_function`` range of its name, so the trace shows the
@@ -19,6 +22,7 @@ allocator's memory statistics.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from collections import deque
@@ -93,11 +97,22 @@ class StageMetrics:
         self._dropped: Dict[str, Tuple[int, int]] = {}  # name -> (count, newest's end)
         self._counters: Dict[str, Union[int, float, torch.Tensor]] = {}
 
-    def span(self, name: str, id: Optional[int] = None) -> _Open:
+    def span(self, name: str, id: Optional[int] = None):
         """A span of ``name`` around a ``with`` block. A span opened inside
         another on the same thread takes that one as its parent and its
-        id; a top-level span takes ``id``."""
+        id; a top-level span takes ``id``. Inside ``quiet()``, nothing."""
+        if getattr(self._local, "quiet", 0):
+            return contextlib.nullcontext()
         return _Open(self, name, id)
+
+    @contextlib.contextmanager
+    def quiet(self):
+        """While open, this thread's spans and counts are not recorded."""
+        self._local.quiet = getattr(self._local, "quiet", 0) + 1
+        try:
+            yield
+        finally:
+            self._local.quiet -= 1
 
     timer = span  # the serving stages' name for it
 
@@ -131,7 +146,9 @@ class StageMetrics:
     def count(self, name: str, value: Union[int, float, torch.Tensor]) -> None:
         """Add ``value`` to counter ``name``: a number on the host, or a
         tensor (elementwise) where it lives, with no host read: a device
-        tensor is added by the device."""
+        tensor is added by the device. Inside ``quiet()``, nothing."""
+        if getattr(self._local, "quiet", 0):
+            return
         with self._lock:
             held = self._counters.get(name)
             if isinstance(value, torch.Tensor):

@@ -31,12 +31,16 @@ Tolerances, each with its reason:
   values.
 - fp32 compute (IEEE products on both sides): within 1e-5 of max |plain|:
   fp32 sums of 192- and up-to-257-term products in two orders.
+- Xing4.0's attention (32 heads, the YaRN tables and the softmax scale
+  192^-1/2 (0.1 ln 64 + 1)^2 as a launch argument) at the main shapes:
+  the limits of the bf16 case above, for the same reasons; and the scale
+  reaches both sides, which read otherwise by far at the default scale.
 """
 
 import pytest
 import torch
 
-from rag_icd10_tpu_torch.models.deepseek_v3 import rope_tables
+from rag_icd10_tpu_torch.models.deepseek_v3 import YaRN, rope_tables
 from rag_icd10_tpu_torch.ops import mla_attention as mla
 from rag_icd10_tpu_torch.utils.metrics import metrics
 
@@ -137,3 +141,32 @@ def test_launch_counters_move(cuda):
     # the plain version launches none of them
     _run(mla.mla_attention_reference, *args)
     assert mla.mla_attention.launches == after[0]
+
+
+@pytest.mark.parametrize("b, s", MAIN)
+def test_yarn_scale_and_tables_at_32_heads(cuda, b, s):
+    heads = 32
+    yarn = YaRN(factor=64, original_max_position_embeddings=4096, beta_fast=32, beta_slow=1,
+                mscale=1, mscale_all_dim=1)
+    scale = (NOPE + ROPE) ** -0.5 * yarn.softmax_factor
+    gen = torch.Generator(device=cuda).manual_seed(b)
+    q = torch.randn(b, s, heads * (NOPE + ROPE), generator=gen, device=cuda)
+    kv = torch.randn(b, s, heads * (NOPE + VD), generator=gen, device=cuda)
+    kv_a = torch.randn(b, s, LORA + ROPE, generator=gen, device=cuda)
+    d_out = torch.randn(b, s, heads * VD, generator=gen, device=cuda)
+    cos, sin = rope_tables(s, ROPE, 10000.0, cuda, yarn)
+
+    def run(fn, scale):
+        leaves = [t.to(torch.bfloat16).requires_grad_(True) for t in (q, kv, kv_a)]
+        out = fn(leaves[0], leaves[1], leaves[2][..., LORA:], cos, sin, heads, scale)
+        (out.float() * d_out).sum().backward()
+        return [out, leaves[0].grad, leaves[1].grad, leaves[2].grad[..., LORA:]]
+
+    got, want = run(mla.mla_attention, scale), run(mla.mla_attention_reference, scale)
+    gaps = [_max_rel(a, b) for a, b in zip(got, want)]
+    default = run(mla.mla_attention_reference, None)
+    moved = _max_rel(default[0], want[0])
+    print(f"MLA kernels, 32 heads, YaRN, {b}x{s}: context, dq, dkv, dk_pe {gaps}; "
+          f"the default scale moves the context by {moved:.3g}")
+    assert gaps[0] <= 2 ** -7 and max(gaps[1:]) <= 2 ** -6
+    assert moved > 0.1

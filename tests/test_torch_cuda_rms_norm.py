@@ -22,7 +22,12 @@ output added; two bf16), layer 2's input (the dense MLP's bf16 output
 added; one bf16), each expert layer's input (a bf16 branch; fp32 out),
 the delta rule's input after an expert layer (an fp32 branch; one bf16),
 the latent attention's input after one (an fp32 branch; two bf16), and
-the final norm (an fp32 branch; fp32 out). Inputs are seeded normals,
+the final norm (an fp32 branch; fp32 out). The Xing4.0 cell's sites, with
+no branch (its stream update is the hyper-connection's): each sublayer's
+input h at 3584 (a block of 448 threads a row) with two bf16 copies (the
+attention's, the dense MLP's) or fp32 (an expert layer's, the final
+norm), and q_a_layernorm at 768 (two rows a block of 192 threads), bf16
+in and out (and fp32, the tests' fp32 model). Inputs are seeded normals,
 weights near 1.
 
 Tolerances, each with its reason (max |difference| over max |plain|):
@@ -68,6 +73,11 @@ SITES = {  # name: (width, x dtype, branch dtype, outputs, x read in place from 
     "delta_rule_after_experts": (2304, F32, F32, (BF,), False),
     "mla_after_experts": (2304, F32, F32, (BF, BF), False),
     "final_norm": (2304, F32, F32, (F32,), False),
+}.items()} | {f"xing_{name}": site for name, site in {  # the Xing4.0 cell's, at 3584 and 768
+    "sublayer_input": (3584, F32, None, (BF, BF), False),
+    "expert_input": (3584, F32, None, (F32,), False),
+    "q_a_layernorm": (768, BF, None, (BF,), False),
+    "fp32_q_a_layernorm": (768, F32, None, (F32,), False),
 }.items()}
 
 
@@ -142,7 +152,7 @@ def test_kernel_against_plain_version(cuda, site):
         assert gap <= _tolerance(name, got[name]), name
 
 
-@pytest.mark.parametrize("width", [2048, 2304, LATENT])
+@pytest.mark.parametrize("width", [2048, 2304, 3584, LATENT, 768])
 def test_rstd_is_the_plain_reciprocal_root(cuda, width):
     """The forward's rstd (one fp32 value a row, saved for the backward)."""
     x = torch.randn(*T_ROWS, width, device=cuda)

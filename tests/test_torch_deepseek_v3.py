@@ -62,6 +62,8 @@ SMALL = dict(
     rope_theta=50000, max_position_embeddings=64, scoring_func="sigmoid",
     topk_method="noaux_tc", n_group=1, topk_group=1)
 MOE_LAYER = "model.layers.1.mlp."
+YARN = dict(type="yarn", factor=64, original_max_position_embeddings=4096, beta_fast=32,
+            beta_slow=1, mscale=1, mscale_all_dim=1)
 
 
 def _arch(compute="float32", **kw):
@@ -309,8 +311,14 @@ def test_config_round_trip_and_what_is_not_implemented():
     arch = _arch(experts_held=[3, 7])
     back = dv.DeepseekV3Arch.from_config(json.loads(json.dumps(arch.to_config())))
     assert back.held == (3, 7) and back.n_routed_experts == 16
-    for bad in ({"q_lora_rank": 1536}, {"n_group": 8}, {"topk_method": "greedy"},
-                {"experts_held": [16]}):
+    lora = dict(SMALL, q_lora_rank=24, rope_scaling=dict(YARN))
+    arch = dv.DeepseekV3Arch.from_config(lora)
+    assert arch.q_lora_rank == 24 and arch.rope_scaling.factor == 64
+    again = dv.DeepseekV3Arch.from_config(json.loads(json.dumps(arch.to_config())))
+    assert (again.q_lora_rank, again.rope_scaling) == (arch.q_lora_rank, arch.rope_scaling)
+    for bad in ({"q_lora_rank": 0}, {"rope_scaling": {"type": "linear", "factor": 4.0}},
+                {"rope_scaling": dict(YARN, attention_factor=1.0)}, {"n_group": 8},
+                {"topk_method": "greedy"}, {"experts_held": [16]}):
         with pytest.raises(ValueError):
             dv.DeepseekV3Arch.from_config(dict(SMALL, **bad))
 
